@@ -10,9 +10,10 @@ becomes ``weight`` [out, in]; conv ``kernel`` [kh, kw, cin, cout] becomes
 paths are renamed to the upstream torch names (diffusers, HF CLAP/CLIP,
 the reference's conditioning modules), which are the inverse of the JAX
 package's converters. The audio-injection branches have no diffusers name
-and are mapped by hand to the reference's processor names. Towers the port
-does not run yet (``adapter``, the VAE encoder) are dropped unless asked
-for.
+and are mapped by hand to the reference's processor names. The audio
+adapter (stage 1 and 3) is carried across under the reference's
+``AudioAdapter`` names when the tree has one; the VAE encoder, which the
+port does not run yet, is dropped unless asked for.
 """
 
 from __future__ import annotations
@@ -95,6 +96,17 @@ _HIER_RULES: Rules = [
     (r"^projector/block_(\d+)/", r"projector/blocks.\1/"),
 ]
 
+_ADAPTER_RULES: Rules = [
+    (r"^token_generator/kv_fc1/", "token_generator/audio_to_kv.0/"),
+    (r"^token_generator/kv_fc2/", "token_generator/audio_to_kv.3/"),
+    (r"^token_generator/ln_(\d+)/", r"token_generator/layer_norms.\1/"),
+    (r"^token_generator/self_attn_(\d+)/to_out/",
+     r"token_generator/self_attn_layers.\1.to_out.0/"),
+    (r"^token_generator/self_attn_(\d+)/", r"token_generator/self_attn_layers.\1/"),
+    (r"^token_generator/output_proj/", "token_generator/output_proj.0/"),
+    (r"^token_generator/output_norm/", "token_generator/output_proj.1/"),
+]
+
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
@@ -163,12 +175,19 @@ def hierarchical_from_flax(p) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def adapter_from_flax(p) -> Dict[str, torch.Tensor]:
+    return _convert(p, _ADAPTER_RULES)
+
+
 def from_flax(params) -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX pipeline params -> the port's per-tower state dicts."""
-    return {
+    out = {
         "clap_audio": clap_audio_from_flax(params["clap_audio"]),
         "clip_text": clip_text_from_flax(params["clip_text"]),
         "hierarchical": hierarchical_from_flax(params["hierarchical"]),
         "unet": unet_from_flax(params["unet"]),
         "vae": vae_from_flax(params["vae"]),
     }
+    if "adapter" in params:
+        out["adapter"] = adapter_from_flax(params["adapter"])
+    return out

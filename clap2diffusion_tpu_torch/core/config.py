@@ -2,20 +2,20 @@
 
 Field names and defaults are those of ``clap2diffusion_tpu/core/config.py``
 for the sections the port runs: the CLAP audio tower, the conditioning
-stack, the UNet, the VAE, the CLIP text encoder and the scheduler. Sections
-the port does not model yet (``data``, ``train``, ``clap.text``,
-``diffusion.clip_vision``) are skipped when a YAML file or a dict names
-them.
+stack, the UNet, the VAE, the CLIP text encoder, the scheduler, the data
+pipeline and the training stages. Sections the port does not model yet
+(``clap.text``, ``diffusion.clip_vision``) are skipped when a YAML file or
+a dict names them. ``apply_overrides`` takes ``a.b.c=value`` strings.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 # Sections of the reference config tree that the port does not model yet.
-_NOT_PORTED = {"data", "train", "text", "clip_vision"}
+_NOT_PORTED = {"text", "clip_vision"}
 
 
 @dataclass(frozen=True)
@@ -154,10 +154,96 @@ class DiffusionConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    data_root: str = "data/audiocaps"
+    latents_dir: str = "latents"
+    audio_dir: str = "audio"
+    metadata_file: str = "metadata_unified.json"
+    batch_size: int = 8
+    num_workers: int = 4
+    prefetch: int = 2
+    sample_rate: int = 48_000
+    duration_s: float = 10.0
+    latent_shape: Tuple[int, int, int] = (4, 64, 64)
+    pairing: str = "matching"  # 'matching' | 'shifted' | 'random' | 'balanced'
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class StageConfig:
+    steps: int = 1000  # micro-steps (one batch each)
+    lr: float = 1e-4
+    batch_size: int = 8
+    grad_accum: int = 1
+    weight_decay: float = 0.01
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    lr_schedule: str = "warmup_cosine"
+    min_lr: float = 0.0
+    ema_decay: float = 0.9999
+    use_ema: bool = False
+    log_every: int = 50
+    save_every: int = 500
+    eval_every: int = 500
+    eval_batches: int = 2
+    # the JAX package runs this many steps in one compiled call; the port
+    # runs eagerly and reads it only where it changes what is logged or saved
+    steps_per_call: int = 1
+    lora_rank: int = 0  # > 0 is not ported: run_stage raises
+    lora_alpha: float = 16.0
+    loss_weights: Dict[str, float] = field(default_factory=dict)
+
+
+def _default_stage1() -> StageConfig:
+    return StageConfig(
+        steps=3000, lr=1e-4, batch_size=8, grad_accum=2, grad_clip=1.0,
+        use_ema=True, steps_per_call=50,
+        loss_weights={"mse": 1.0, "infonce": 1.0},
+    )
+
+
+def _default_stage2() -> StageConfig:
+    return StageConfig(
+        steps=2000, lr=5e-5, batch_size=4, grad_accum=4, grad_clip=1.0,
+        use_ema=True, steps_per_call=25,
+        loss_weights={"diffusion": 1.0, "orthogonality": 0.1, "entropy": 0.01},
+    )
+
+
+def _default_stage3() -> StageConfig:
+    return StageConfig(
+        steps=1000, lr=1e-5, batch_size=2, grad_accum=8, grad_clip=0.5,
+        lr_schedule="cosine", min_lr=1e-6,
+        use_ema=True, steps_per_call=25,
+        loss_weights={"diffusion": 2.0, "consistency": 0.5, "alignment": 0.3},
+    )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    stage1: StageConfig = field(default_factory=_default_stage1)
+    stage2: StageConfig = field(default_factory=_default_stage2)
+    stage3: StageConfig = field(default_factory=_default_stage3)
+    infonce_temperature: float = 0.07
+    checkpoint_dir: str = "checkpoints"
+    log_dir: str = "logs"
+    mesh_shape: Dict[str, int] = field(default_factory=lambda: {"data": -1})
+    model_parallel: int = 1
+    seed: int = 42
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
 class Config:
     clap: CLAPConfig = field(default_factory=CLAPConfig)
     condition: ConditionConfig = field(default_factory=ConditionConfig)
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def from_dict(cls, d: Dict[str, Any]):
@@ -187,7 +273,7 @@ _DATACLASSES = {
     for c in (
         AudioFrontendConfig, HTSATConfig, CLAPConfig, ConditionConfig,
         UNetConfig, VAEConfig, CLIPTextConfig, SchedulerConfig,
-        DiffusionConfig, Config,
+        DiffusionConfig, DataConfig, StageConfig, TrainConfig, Config,
     )
 }
 
@@ -202,14 +288,47 @@ def _deep_merge(base: Dict[str, Any], upd: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def load_config(path: Optional[str] = None) -> Config:
-    """Load ``Config`` from YAML (e.g. ``configs/default.yaml``); missing
-    keys keep their defaults."""
-    cfg = Config()
-    if path is None:
-        return cfg
+def _parse_scalar(s: str) -> Any:
     import yaml
 
-    with open(path) as f:
-        raw = yaml.safe_load(f) or {}
-    return from_dict(Config, _deep_merge(dataclasses.asdict(cfg), raw))
+    v = yaml.safe_load(s)
+    if isinstance(v, str):  # YAML 1.1 reads "3e-4" as a string; Python does not
+        for cast in (int, float):
+            try:
+                return cast(v)
+            except ValueError:
+                pass
+    return v
+
+
+def apply_overrides(cfg: Config, overrides: List[str]) -> Config:
+    """Apply ``a.b.c=value`` overrides onto a frozen Config tree."""
+    d = dataclasses.asdict(cfg)
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        path, _, raw = ov.partition("=")
+        keys = path.strip().split(".")
+        node = d
+        for k in keys[:-1]:
+            node = node[k]
+        if keys[-1] not in node:
+            raise KeyError(f"unknown config path {path!r}")
+        node[keys[-1]] = _parse_scalar(raw)
+    return from_dict(Config, d)
+
+
+def load_config(path: Optional[str] = None,
+                overrides: Optional[List[str]] = None) -> Config:
+    """Load ``Config`` from YAML (e.g. ``configs/default.yaml``); missing
+    keys keep their defaults; then the overrides."""
+    cfg = Config()
+    if path is not None:
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        cfg = from_dict(Config, _deep_merge(dataclasses.asdict(cfg), raw))
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
+    return cfg

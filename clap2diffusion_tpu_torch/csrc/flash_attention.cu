@@ -23,7 +23,11 @@
 //     (d=40 -> 48); device memory holds the real width;
 //   * the fp32 accumulator of a 64-row tile at d=512 does not fit in
 //     registers, so for d > 160 the output columns are split into chunks of
-//     128 across blocks (grid.z); each chunk recomputes S.
+//     128 across blocks (grid.z); each chunk recomputes S;
+//   * for training, the caller may pass an fp32 [B*H, Sq] buffer for the row
+//     log-sum-exp (m + log l of the online softmax, natural log), which the
+//     backward (flash_attention_bwd.cu) reads; column chunk 0 writes it. With
+//     a null pointer nothing else changes: serving's outputs are the same bits.
 // fp32 inputs take a plain FMA kernel (16 query rows x 32 keys per step,
 // everything in shared memory), exact to fp32 rounding.
 //
@@ -42,6 +46,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // null, or fp32 [B*H, Sq]
   int B, H, Sq, Sk, D;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   float scale;
@@ -215,6 +220,12 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   const int r0 = q0 + qr + g, r1 = r0 + 8;
+  if (p.lse != nullptr && blockIdx.z == 0 && t == 0) {
+    // m is in log2 units: sum_k exp(s_k * scale) = 2^m * l
+    float* lg = p.lse + (long long)blockIdx.y * p.Sq;
+    if (r0 < p.Sq) lg[r0] = m0 * 0.6931471805599453f + logf(l0);
+    if (r1 < p.Sq) lg[r1] = m1 * 0.6931471805599453f + logf(l1);
+  }
 #pragma unroll
   for (int j = 0; j < DVC / 8; ++j) {
     const int col = c0 + j * 8 + 2 * t;  // even; D % 8 == 0 keeps col+1 < D
@@ -326,6 +337,8 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(const Params p) {
     const int r = i / D, c = i % D;
     if (q0 + r < p.Sq) og[(q0 + r) * p.oss + c] = l_s[r] > 0.f ? o_s[i] / l_s[r] : 0.f;
   }
+  if (p.lse != nullptr && tid < FQ && q0 + tid < p.Sq)
+    p.lse[(long long)blockIdx.y * p.Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
@@ -346,13 +359,15 @@ extern "C" {
 
 // dtype: 0 = bf16, 1 = fp32. Strides are in elements; the last dim is
 // contiguous. Requires D % 8 == 0, D <= 512, 16-byte aligned pointers and
-// strides that are multiples of 8 elements (the wrapper checks).
-int c2d_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
+// strides that are multiples of 8 elements (the wrapper checks). ``lse`` is
+// null or an fp32 [B*H, Sq] buffer for the row log-sum-exp.
+int c2d_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                            int dtype,
                             int B, int H, int Sq, int Sk, int D, long long qsb, long long qsh,
                             long long qss, long long ksb, long long ksh, long long kss,
                             long long vsb, long long vsh, long long vss, long long osb,
                             long long osh, long long oss, float scale, void* stream) {
-  const Params p{q,   k,   v,   o,   B,   H,   Sq,  Sk,  D,   qsb, qsh, qss,
+  const Params p{q,   k,   v,   o,   lse, B,   H,   Sq,  Sk,  D,   qsb, qsh, qss,
                  ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, scale};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) return (int)launch_f32(p, st);

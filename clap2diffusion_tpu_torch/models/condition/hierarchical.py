@@ -1,13 +1,16 @@
 """Hierarchical audio conditioning stack (port of
-``clap2diffusion_tpu/models/condition/hierarchical.py``, inference path).
+``clap2diffusion_tpu/models/condition/hierarchical.py``).
 
 CLAP embedding [B,512] -> 10 tokens soft-assigned to {foreground,
 background, ambience} -> routed to the UNet's early/mid/late levels, and
 projected to 77 CLIP-shaped tokens. Parameter names are the reference's
 ``ImprovedHierarchicalAudioEncoder`` names, as
 ``models/condition/convert.py::convert_hierarchical_encoder`` reads them.
-Dropout slots are identities (inference only); the stage-2 losses and the
-monitoring stats are training-side and not ported yet.
+Dropout (rate 0.1) sits where the JAX modules have it and is active only
+with ``deterministic=False``, drawing its masks from the ``generator`` the
+caller passes. ``return_all=True`` also returns the stage-2 regularisers
+(``compute_condition_losses``) and the monitoring stats
+(``assignment_stats``).
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from clap2diffusion_tpu_torch.core.config import ConditionConfig
+from clap2diffusion_tpu_torch.models.layers import dropout
 from clap2diffusion_tpu_torch.ops.attention import mha
 
 LEVELS = ("early", "mid", "late")
 ROUTING_INIT = ((0.1, 0.3, 0.6), (0.2, 0.6, 0.2), (0.6, 0.3, 0.1))
+DROPOUT = 0.1
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -48,11 +53,15 @@ class CrossHierarchyAttention(nn.Module):
                                   nn.Linear(hidden, bottleneck_dim)])
         self.output_proj = nn.Linear(bottleneck_dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        def drop(t):
+            return dropout(t, DROPOUT, deterministic, generator)
+
         h0 = self.input_proj(x)
         q, k, v = self.qkv(self.norm1(h0)).chunk(3, dim=-1)
-        h0 = h0 + self.proj(mha(q, k, v, self.num_heads))
-        h = self.mlp[3](F.gelu(self.mlp[0](self.norm2(h0))))
+        h0 = h0 + drop(self.proj(mha(q, k, v, self.num_heads)))
+        h = drop(self.mlp[3](drop(F.gelu(self.mlp[0](self.norm2(h0))))))
         return x + self.output_proj(h0 + h)
 
 
@@ -75,10 +84,11 @@ class SoftHierarchicalDecomposition(nn.Module):
             d, cfg.hierarchy_heads, cfg.hierarchy_bottleneck, mlp_ratio=1.5)
         self.norm = nn.LayerNorm(d, eps=1e-5)
 
-    def forward(self, audio_features: torch.Tensor, temperature):
+    def forward(self, audio_features: torch.Tensor, temperature,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
         m = self.shared_mlp
-        shared = m[4](m[2](F.gelu(m[0](audio_features))))
-        tokens = shared[:, None, :] + self.token_offsets[None]
+        h = dropout(m[2](F.gelu(m[0](audio_features))), DROPOUT, deterministic, generator)
+        tokens = m[4](h)[:, None, :] + self.token_offsets[None]
         similarity = torch.einsum(
             "bkd,ld->bkl", _l2_normalize(tokens.float()), _l2_normalize(self.level_anchors.float())
         ) * self.cfg.similarity_scale
@@ -87,7 +97,7 @@ class SoftHierarchicalDecomposition(nn.Module):
         temperature = torch.clamp(torch.as_tensor(temperature, dtype=torch.float32,
                                                   device=logits.device), min=0.1)
         assignments = torch.softmax(logits / temperature, dim=-1)
-        tokens = self.norm(self.cross_hierarchy_attn(tokens))
+        tokens = self.norm(self.cross_hierarchy_attn(tokens, deterministic, generator))
         return tokens, {"assignments": assignments.to(tokens.dtype), "temperature": temperature}
 
 
@@ -162,10 +172,15 @@ class PerceiverCrossBlock(nn.Module):
             nn.Identity(), nn.Linear(d_model * 2, d_model),
         ])
 
-    def forward(self, queries: torch.Tensor, keys_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, queries: torch.Tensor, keys_values: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        def drop(t):
+            return dropout(t, DROPOUT, deterministic, generator)
+
         queries = queries + self.cross_attn(self.ln_q(queries), self.ln_kv(keys_values))
         f = self.ffn
-        return queries + f[4](F.gelu(f[1](f[0](queries))))
+        return queries + drop(f[4](drop(F.gelu(f[1](f[0](queries))))))
 
 
 class AudioProjectionTransformer77(nn.Module):
@@ -183,11 +198,12 @@ class AudioProjectionTransformer77(nn.Module):
         self.clip_pos_embed = nn.Parameter(torch.zeros(1, n, cfg.token_dim))
         self.out_norm = nn.LayerNorm(cfg.token_dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         audio = self.audio_proj(x)
         q = (self.queries + self.query_pos)[None].expand(x.shape[0], -1, -1).to(audio.dtype)
         for blk in self.blocks:
-            q = blk(q, audio)
+            q = blk(q, audio, deterministic, generator)
         out = self.out_proj(q) + self.clip_pos_embed.to(audio.dtype)
         return self.out_norm(out)
 
@@ -198,10 +214,11 @@ class HierarchicalAudioEncoder(nn.Module):
     ``forward(audio [B,512], temperature)`` -> tokens77 [B,77,768]; with
     ``return_all=True`` -> ``(tokens77, info)``, where info carries
     tokens_10, tokens_77, assignments, routed {early, mid, late},
-    hierarchy_weights and temperature."""
+    hierarchy_weights, losses, stats and temperature."""
 
     def __init__(self, cfg: ConditionConfig, use_adaptive_weights: bool = True):
         super().__init__()
+        self.cfg = cfg
         self.decomposer = SoftHierarchicalDecomposition(cfg)
         self.adaptive_weights = (AdaptiveHierarchyWeights(cfg.clap_dim, cfg.num_levels)
                                  if use_adaptive_weights else None)
@@ -209,19 +226,47 @@ class HierarchicalAudioEncoder(nn.Module):
         self.projector = AudioProjectionTransformer77(cfg)
 
     def forward(self, audio_features: torch.Tensor, temperature=2.0, *,
-                return_all: bool = False):
-        tokens_10, info = self.decomposer(audio_features, temperature)
+                return_all: bool = False, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        tokens_10, info = self.decomposer(audio_features, temperature, deterministic, generator)
         weights = (None if self.adaptive_weights is None
                    else self.adaptive_weights(audio_features))
         routed = self.router(tokens_10, info["assignments"], weights)
-        tokens_77 = self.projector(tokens_10)
+        tokens_77 = self.projector(tokens_10, deterministic, generator)
         if not return_all:
             return tokens_77
+        prior = torch.tensor(self.cfg.level_prior, dtype=torch.float32,
+                             device=audio_features.device)
         return tokens_77, {
             "tokens_10": tokens_10,
             "tokens_77": tokens_77,
             "assignments": info["assignments"],
             "routed": routed,
             "hierarchy_weights": weights,
+            "losses": compute_condition_losses(info["assignments"], tokens_10, prior),
+            "stats": assignment_stats(info["assignments"]),
             "temperature": info["temperature"],
         }
+
+
+def compute_condition_losses(assignments: torch.Tensor, tokens: torch.Tensor,
+                             level_prior: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Stage-2 regularisers: mean assignment entropy, MSE of the token Gram
+    matrix against the identity, and KL(level usage || prior), batch-mean."""
+    a = assignments.float()
+    entropy = -(a * torch.log(a + 1e-8)).sum(-1).mean()
+    t_n = _l2_normalize(tokens.float())
+    gram = torch.einsum("bkd,bjd->bkj", t_n, t_n)
+    eye = torch.eye(tokens.shape[1], dtype=torch.float32, device=tokens.device)
+    ortho = ((gram - eye[None]) ** 2).mean()
+    avg = a.mean(dim=1)
+    kl = (avg * (torch.log(avg + 1e-8) - torch.log(level_prior[None]))).sum(-1).mean()
+    return {"entropy": entropy, "orthogonality": ortho, "prior": kl}
+
+
+def assignment_stats(assignments: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Monitoring stats: mean assignment per level, entropy, exp(entropy)."""
+    a = assignments.float()
+    entropy = -(a * torch.log(a + 1e-8)).sum(-1).mean()
+    return {"avg_assignment": a.mean(dim=(0, 1)), "entropy": entropy,
+            "effective_levels": torch.exp(entropy)}

@@ -4,7 +4,8 @@
 Parameter names follow the reference's ``AudioAttnProcessor``
 (``audio_proj`` = Linear, GELU, Dropout, Linear; ``alpha``), as
 ``models/condition/export.py::export_injection_processors`` names them.
-Inference only: the dropout slot is an identity.
+The dropout slot is an identity: the JAX training steps apply the UNet
+deterministically, so this dropout is off in training too.
 """
 
 from __future__ import annotations

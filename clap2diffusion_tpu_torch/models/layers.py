@@ -10,11 +10,28 @@ Parameter names and shapes are PyTorch's own (``weight`` [O, I, kh, kw],
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from clap2diffusion_tpu_torch.ops.groupnorm import group_norm, group_norm_silu
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: the identity when ``deterministic``; otherwise
+    each element is kept with probability ``1 - rate`` and scaled by
+    ``1 / (1 - rate)``. The mask comes from ``generator`` (on x's device),
+    never from the global RNG."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Conv2d(nn.Conv2d):

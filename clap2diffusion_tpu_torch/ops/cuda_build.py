@@ -13,10 +13,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, List
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # -Xptxas=-v prints each kernel's registers, shared memory and spills at build time
@@ -27,6 +29,37 @@ NVCC_FLAGS = [
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# what nvcc printed for each source built in this process (ptxas -v lines)
+BUILD_LOGS: Dict[str, str] = {}
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def _short_name(mangled: str) -> str:
+    """``flash_bwd_dq_bf16<64>`` from a mangled kernel name of this repo."""
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_(?:bf16|f32)|bwd_delta)", mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"Li(\d+)E", mangled)
+    if m.group(1) == "bwd_delta":
+        args = ["bf16" if "bfloat16" in mangled else "f32"]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_summary(text: str) -> List[Dict]:
+    """Per kernel of an nvcc ``-Xptxas=-v`` log: name, registers, spill
+    stores and loads (bytes)."""
+    out: List[Dict] = []
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            out.append({"kernel": _short_name(m.group(1))})
+        elif out and (m := _PTXAS_SPILL.search(line)):
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif out and (m := _PTXAS_REGS.search(line)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def build_dir() -> str:
@@ -51,7 +84,7 @@ def library_path(source: str) -> str:
 
 def build(source: str) -> str:
     """Compile ``csrc/<source>`` unless its library is already built;
-    returns the library's path. Prints what nvcc prints."""
+    returns the library's path. What nvcc printed goes to ``BUILD_LOGS``."""
     out = library_path(source)
     if os.path.exists(out):
         return out
@@ -63,10 +96,17 @@ def build(source: str) -> str:
         raise RuntimeError(
             f"nvcc failed on {source} (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
         )
-    if proc.stdout.strip() or proc.stderr.strip():
-        print(proc.stdout + proc.stderr, flush=True)
+    BUILD_LOGS[source] = proc.stdout + proc.stderr
     os.replace(tmp, out)
     return out
+
+
+def build_all(sources: Iterable[str]) -> None:
+    """Build several sources at once, one nvcc process each."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        for fut in [pool.submit(build, s) for s in sources]:
+            fut.result()
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -33,6 +33,14 @@ a CUDA tensor they launch the kernels or raise. Each keeps a launch
 count (``.launches``) and a count of the (shape, dtype, groups, eps) it
 ran on (``.shapes``). The Triton cache goes beside the CUDA build
 (``build/kernels/triton``) unless ``TRITON_CACHE_DIR`` is set.
+
+Gradients: when an input needs one, the call goes through
+``GroupNormFunction``, whose forward is the same kernels (the plain version
+on the CPU) and saves (x, scale, bias). Its backward recomputes
+``plain_group_norm`` under autograd and returns that vector-Jacobian
+product. This is deliberate and not a fallback: the JAX package's custom
+VJPs (``groupnorm.py::_bwd`` and ``_gn_bwd``) do the same XLA recompute and
+have no backward kernel, so there is none to port.
 """
 
 from __future__ import annotations
@@ -200,28 +208,56 @@ def _launch(x, scale, bias, groups: int, eps: float, silu: bool) -> torch.Tensor
     return y
 
 
-def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm + SiLU over NHWC."""
+def _forward(x, scale, bias, groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """The plain version on a CPU tensor, the kernels on a CUDA tensor."""
     if x.device.type == "cpu":
-        return plain_group_norm(x, scale, bias, groups, eps, silu=True)
+        return plain_group_norm(x, scale, bias, groups, eps, silu)
     if not x.is_cuda:
-        raise ValueError(f"group_norm_silu: CPU or CUDA tensor expected, got {x.device}")
-    y = _launch(x, scale, bias, groups, eps, silu=True)
-    group_norm_silu.launches += 1
-    group_norm_silu.shapes[(tuple(x.shape), str(x.dtype), groups, eps)] += 1
+        raise ValueError(f"group_norm: CPU or CUDA tensor expected, got {x.device}")
+    y = _launch(x, scale, bias, groups, eps, silu)
+    fn = group_norm_silu if silu else group_norm
+    fn.launches += 1
+    fn.shapes[(tuple(x.shape), str(x.dtype), groups, eps)] += 1
     return y
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """GroupNorm(+SiLU) with the kernels forward and the JAX package's
+    backward: autograd of ``plain_group_norm`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups: int, eps: float, silu: bool):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (groups, eps, silu)
+        return _forward(x, scale, bias, groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            y = plain_group_norm(*inputs, *ctx.args)
+            grads = torch.autograd.grad(y, [t for t in inputs if t.requires_grad], gy)
+        it = iter(grads)
+        return (*(next(it) if n else None for n in need), None, None, None)
+
+
+def _apply(x, scale, bias, groups: int, eps: float, silu: bool) -> torch.Tensor:
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return GroupNormFunction.apply(x, scale, bias, groups, eps, silu)
+    return _forward(x, scale, bias, groups, eps, silu)
+
+
+def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm + SiLU over NHWC; differentiable."""
+    return _apply(x, scale, bias, groups, eps, silu=True)
 
 
 def group_norm(x, scale, bias, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over NHWC (the same kernels with SiLU off)."""
-    if x.device.type == "cpu":
-        return plain_group_norm(x, scale, bias, groups, eps, silu=False)
-    if not x.is_cuda:
-        raise ValueError(f"group_norm: CPU or CUDA tensor expected, got {x.device}")
-    y = _launch(x, scale, bias, groups, eps, silu=False)
-    group_norm.launches += 1
-    group_norm.shapes[(tuple(x.shape), str(x.dtype), groups, eps)] += 1
-    return y
+    """GroupNorm over NHWC (the same kernels with SiLU off); differentiable."""
+    return _apply(x, scale, bias, groups, eps, silu=False)
 
 
 for _fn in (group_norm_silu, group_norm):
