@@ -5,8 +5,11 @@
 
 Phases (each raises on failure, so the exit code is non-zero):
   1. Environment and build: the card's name and power limit, the nvcc builds
-     of the flash-attention forward and backward kernels (in parallel) and
-     the Triton import, timed.
+     of the four CUDA sources (flash-attention forward and backward, the
+     head-packed forward, the Winograd conv; one nvcc each, in parallel) and
+     the Triton import, timed. The opt-in flags C2D_PACKED_FLASH,
+     C2D_WINOGRAD and C2D_INT8 are cleared; phases 3b and 5b set
+     C2D_PACKED_FLASH=1 for themselves only.
   2. A census UNet forward (CFG batch 2) and VAE decode at full SD v1.5
      geometry record the shapes the serving path gives each kernel; then
      every kernel is held against its plain PyTorch version at each of those
@@ -22,11 +25,33 @@ Phases (each raises on failure, so the exit code is non-zero):
      The GroupNorm Functions' gradients are held against autograd of
      ``plain_group_norm``, and the GroupNorm kernels against their plain
      version at the training shapes.
+  2c. The head-packed forward kernel: a census of the packed route's shapes
+     (one UNet forward and one stage-2/3 micro-step each under
+     C2D_PACKED_FLASH=1), then the kernel against its plain version at each
+     ([B, S, H*D] inputs, bf16 and fp32) and at ragged cases (a ghost head,
+     pack 4, pack 2, S off the tile), the [B, H, S, D] entry against the
+     strided one (same bits), the log-sum-exp against torch.logsumexp and the
+     backward through the Function against autograd of the plain version;
+     timed beside its bound, the plain version, the per-head kernel on the
+     same data and SDPA on the [B, H, S, D] view.
+  2d. The Winograd kernel (wired into no model, as in the JAX package): at
+     the census of the UNet's Conv3x3 shapes (batch 2) that ``eligible``
+     takes and at tools/bench_wino_pallas.py's shapes, against its plain
+     version and against a direct conv (cuDNN, TF32 off), bf16 and fp32,
+     timed beside its bound, the plain version and cuDNN ``F.conv2d``; its
+     entry point driven over one UNet forward's census with counts reset;
+     and one full-width UNet forward with C2D_WINOGRAD=1 (the plain-PyTorch
+     route) against the direct conv.
   3. The serving path: 3 requests through ``AudioToImagePipeline.generate``
      (hierarchical, 50-step DDIM, CFG 7.5, 512x512, bf16 weights drawn from
      a seeded torch.Generator, a 10 s 48 kHz synthetic waveform, hash
      tokenizer ids). Counts are reset just before and read just after: each
      request must launch flash 751 times and group_norm_silu 2,279 times.
+  3b. Serving under C2D_PACKED_FLASH=1: one full-width UNet forward with the
+     route on and off on the same inputs (bf16, and an fp32 copy), then 2
+     requests with the flag set, each with exactly 250 packed, 501 per-head
+     flash and 2,279 GN+SiLU launches, interleaved with 2 requests without it
+     (751 per-head, no packed launch) for a wall-time comparison.
   4. Reference check: a small configuration (flash and GroupNorm kernels
      on) in fp32 on the card against the same pipeline on the CPU (plain
      versions), under the frozen-golden bounds of tests/test_image_golden.py.
@@ -35,6 +60,9 @@ Phases (each raises on failure, so the exit code is non-zero):
      random seeded fp32 master weights with bf16 compute, batch 4, grad
      accumulation 4, 16 micro-steps (4 updates); then 2 micro-steps of
      stage 3. Counts are reset just before each and read per micro-step.
+  5b. Stage-2 training under C2D_PACKED_FLASH=1: 4 micro-steps, each with
+     exactly 5 packed forwards, 10 per-head forwards and 14 backwards, 4 of
+     them the packed route's at [4, 8, 4096, 40].
   6. Small training reference: one stage-2 micro-step of the small
      configuration in fp32 on the card (TF32 off, kernels on) against the
      same step on the CPU: loss and the gradient of every trainable leaf.
@@ -43,11 +71,15 @@ Timing: CUDA events around repeated launches after a warm-up (inputs stay
 in L2 where they fit, as they do on the path, where the producer just wrote
 them). Bounds use the H100 SXM data-sheet rates: 989 TFLOP/s bf16 tensor,
 67 TFLOP/s fp32, 3.35 TB/s HBM3. The line before the last two is the
-``kernels`` JSON: the forward and GroupNorm times are per image (sum over
-the serving path's calls of one image), the backward's per stage-2
-micro-step. The last line is the device JSON.
+``kernels`` JSON: the forward, packed-forward and GroupNorm times are per
+image (sum over the serving path's calls of one image), the backward's per
+stage-2 micro-step, the Winograd kernel's per UNet forward over the eligible
+census shapes (with per-call rows at the bench shapes). The last line is
+the device JSON.
 """
 
+import contextlib
+import copy
 import json
 import os
 import statistics
@@ -67,6 +99,8 @@ from clap2diffusion_tpu_torch.data.fixtures import make_fixture_dataset
 from clap2diffusion_tpu_torch.ops import cuda_build
 from clap2diffusion_tpu_torch.ops import flash_attention as fa
 from clap2diffusion_tpu_torch.ops import groupnorm as gn
+from clap2diffusion_tpu_torch.ops import winograd as wino
+from clap2diffusion_tpu_torch.ops import winograd_pallas as wp
 from clap2diffusion_tpu_torch.train import stages as S
 from clap2diffusion_tpu_torch.train import trainer as T
 
@@ -87,6 +121,32 @@ BWD_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 REQUESTS = 3
 FLASH_PER_IMAGE = 751
 GN_SILU_PER_IMAGE = 2279
+# Under C2D_PACKED_FLASH=1 the 5 self-attentions at 4096 tokens (8 heads of
+# d=40, pack 3) of each of the 50 CFG UNet forwards take the packed kernel.
+PACKED_PER_FORWARD = 5
+PACKED_PER_IMAGE = 50 * PACKED_PER_FORWARD
+PACKED_REQUESTS = 2
+PACKED_TRAIN_STEPS = 4
+# Winograd kernel vs its plain version, per tensor: |k - p| <= atol*max|p| +
+# rtol*|p|. bf16: V and U are the same bits in both; the fp32 sums of the
+# 16 products run in another order, so the output cast and then the bias
+# added in bf16 may each round the other way (2^-8). fp32: summation order.
+WINO_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+# Winograd vs a direct conv (cuDNN, TF32 off), atol*max|direct|: bf16 rounds
+# V = BT d BT^T and U = G w G^T to bf16 where the direct conv rounds only x and
+# w (about 5e-3 of the output scale); fp32: the transforms' rounding.
+DIRECT_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-3}
+# A full-width UNet forward (CFG batch 2) with an opt-in route on against the
+# same forward with it off, on the same inputs, max |err| of max|eps|. fp32
+# (TF32 off) checks the route: the kernels' and transforms' fp32 rounding.
+# bf16: every bf16 layer after the first changed op rounds again, so a
+# per-element difference of one ulp compounds through the net: an H100 run
+# measured 1.8e-2 (packed attention) and 2.4e-2 (Winograd convs) of
+# max|eps| in bf16 against 4.3e-6 and 3.8e-6 in fp32.
+UNET_ROUTE_TOL = {torch.bfloat16: 6e-2, torch.float32: 1e-4}
+BENCH_WINO_SHAPES = [((2, 64, 64, 320), 320), ((2, 32, 32, 640), 640),
+                     ((16, 64, 64, 320), 320)]  # tools/bench_wino_pallas.py:54-58
+FLAGS = ("C2D_PACKED_FLASH", "C2D_WINOGRAD", "C2D_INT8")
 # Per training micro-step (stages 2 and 3): 15 flash forwards (5 at each of
 # 4096, 1024 and 256 tokens) and 14 backwards. The first self-attention of
 # down block 0 comes before any trainable leaf (its input depends only on
@@ -290,15 +350,172 @@ def gn_grad_case(kind, shape, dtype, groups, eps, gen):
     return row
 
 
+KERNEL_FNS = (fa.flash_attention, fa.flash_attention_bwd, fa.packed_flash_attention,
+              gn.group_norm_silu, gn.group_norm, wp.conv3x3_winograd_pallas)
+
+
 def reset_counts():
-    for fn in (fa.flash_attention, fa.flash_attention_bwd, gn.group_norm_silu, gn.group_norm):
+    for fn in KERNEL_FNS:
         fn.launches = 0
         fn.shapes.clear()
 
 
 def counts():
-    return {fn.__name__: fn.launches for fn in
-            (fa.flash_attention, fa.flash_attention_bwd, gn.group_norm_silu, gn.group_norm)}
+    return {fn.__name__: fn.launches for fn in KERNEL_FNS}
+
+
+@contextlib.contextmanager
+def flag(name):
+    """``name=1`` in the environment for the block only (the port reads the
+    opt-in flags per call)."""
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(name)
+
+
+def packed_case(b, s, h, d, dtype, gen, timed=True):
+    """The packed kernel against its plain version at one [B, S, H*D] shape:
+    the output (nhd entry), the [B, H, S, D] entry (same bits), the
+    log-sum-exp, and the backward through the Function against autograd of
+    the plain version."""
+    pack = min(128 // d, h)
+    q, k, v, do = (torch.randn(b, s, h * d, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    scale = d ** -0.5
+    name = f"packed_flash [{b},{s},{h}x{d}] pack {pack} {str(dtype)[6:]}"
+
+    def heads(x):
+        return x.unflatten(2, (h, d)).transpose(1, 2)
+
+    got = fa.packed_flash_nhd(q, k, v, h, pack, scale)
+    torch.cuda.synchronize()
+    ref = fa.plain_packed_flash_attention(heads(q), heads(k), heads(v), scale)
+    err = check(name, heads(got), ref, dtype)
+    dense = [heads(t).contiguous() for t in (q, k, v)]  # [B, H, S, D] storage
+    if not torch.equal(fa.packed_flash_attention(*dense, scale, pack), heads(got)):
+        raise AssertionError(f"{name}: the [B,H,S,D] entry gives other bits than [B,S,H*D]")
+    o, lse = fa.packed_flash_attention_fwd(heads(q), heads(k), heads(v), scale, pack,
+                                           with_lse=True)
+    if not torch.equal(o, heads(got)):
+        raise AssertionError(f"{name}: the forward with lse gives other output bits")
+    lse_ref = torch.logsumexp(torch.matmul(heads(q).float(), heads(k).float().transpose(-1, -2))
+                              * scale, -1)
+    lse_err = (lse - lse_ref).abs()
+    if not (lse_err <= 1e-4 * (1 + lse_ref.abs())).all():
+        raise AssertionError(f"{name}: lse off by {lse_err.max().item():.3g}")
+    ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.packed_flash_nhd(*ins, h, pack, scale)
+    grads = torch.autograd.grad(out, ins, do)
+    ref_ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ref_out = fa.plain_packed_flash_attention(*(heads(t) for t in ref_ins), scale)
+    ref_grads = torch.autograd.grad(ref_out, ref_ins, heads(do))
+    atol, rtol = BWD_TOL[dtype]
+    bwd_errs = []
+    for part, a, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        a, r = a.float(), r.float()
+        e = (a - r).abs()
+        if not torch.isfinite(a).all() or (e > atol * r.abs().max() + rtol * r.abs()).any():
+            raise AssertionError(f"{name} {part}: max |err| {e.max().item():.3g} of max|p| "
+                                 f"{r.abs().max().item():.3g}")
+        bwd_errs.append(e.max().item() / max(r.abs().max().item(), 1e-30))
+    row = {"kernel": "packed_flash_attention_fwd", "x": [b, s, h * d], "heads": h, "d": d,
+           "pack": pack, "dtype": str(dtype)[6:], "max_abs_err": err,
+           "lse_err": lse_err.max().item(), "bwd_rel_err": bwd_errs}
+    if timed:
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        bms, by = bound_ms(4 * b * h * s * s * d, 4 * b * s * h * d * q.element_size(), dtype)
+        row.update({
+            "kernel_ms": time_ms(lambda: fa.packed_flash_nhd(q, k, v, h, pack, scale)),
+            "plain_ms": time_ms(lambda: fa.plain_packed_flash_attention(qh, kh, vh, scale)),
+            "per_head_ms": time_ms(lambda: fa.flash_attention_fwd(qh, kh, vh, scale)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                         scale=scale)),
+            "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by})
+    log(row)
+    return row
+
+
+def wino_case(x_shape, cout, dtype, gen, timed=True):
+    """The Winograd kernel against its plain version and a direct conv at
+    one shape (HWIO weights ~ N(0, 1/(9 Cin)), a bias)."""
+    cin = x_shape[-1]
+    x = torch.randn(x_shape, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen) / (9 * cin) ** 0.5).to(dtype)
+    bias = (torch.randn(cout, device="cuda", generator=gen) * 0.1).to(dtype)
+    name = f"winograd {list(x_shape)}->{cout} {str(dtype)[6:]}"
+    got = wp.conv3x3_winograd_pallas(x, w, bias)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    ref = wp.plain_conv3x3_winograd_pallas(x, w, bias).float()
+    atol, rtol = WINO_TOL[dtype]
+    err = (got.float() - ref).abs()
+    if (err > atol * ref.abs().max() + rtol * ref.abs()).any():
+        raise AssertionError(f"{name}: max |err| {err.max().item():.3g} vs plain, max|p| "
+                             f"{ref.abs().max().item():.3g}")
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    nchw = x.permute(0, 3, 1, 2)  # channels_last view: the same memory
+    direct = F.conv2d(nchw, w_oihw, bias, padding=1).permute(0, 2, 3, 1).float()
+    derr = (got.float() - direct).abs().max().item() / direct.abs().max().item()
+    if derr > DIRECT_TOL[dtype]:
+        raise AssertionError(f"{name}: {derr:.3g} of max|direct| off the direct conv")
+    row = {"kernel": "winograd_conv3x3", "x": list(x_shape), "cout": cout,
+           "dtype": str(dtype)[6:], "max_abs_err": err.max().item(),
+           "rel_err_vs_plain": err.max().item() / ref.abs().max().item(),
+           "rel_err_vs_direct": derr}
+    if timed:
+        b, h, wd, _ = x_shape
+        u = wp.winograd_filter(w, dtype)
+        nbytes = (b * h * wd * cin + 9 * cin * cout + b * h * wd * cout) * x.element_size()
+        bms, by = bound_ms(8 * b * h * wd * cin * cout, nbytes, dtype)
+        row.update({
+            "kernel_ms": time_ms(lambda: wp.winograd_conv_fwd(x, u, bias)),
+            "entry_ms": time_ms(lambda: wp.conv3x3_winograd_pallas(x, w, bias)),
+            "plain_ms": time_ms(lambda: wp.plain_conv3x3_winograd_pallas(x, w, bias)),
+            "library_ms": time_ms(lambda: F.conv2d(nchw, w_oihw, bias, padding=1)),
+            "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by})
+    log(row)
+    return row
+
+
+def unet_route_check(unet, args, flag_name):
+    """One UNet forward with ``flag_name`` set against one without, on the
+    same inputs, in bf16 (``unet`` as served) and in fp32 (a copy, TF32
+    off): {dtype: max |err| / max|eps|}; raises past ``UNET_ROUTE_TOL``."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        net = unet if dtype == torch.bfloat16 else copy.deepcopy(unet).float()
+        cast = [a.to(dtype) if a.is_floating_point() else a for a in args[:3]]
+        audio = {k: v.to(dtype) for k, v in args[3].items()}
+        with torch.inference_mode():
+            off = net(*cast, audio).float()
+            with flag(flag_name):
+                on = net(*cast, audio).float()
+        err = ((on - off).abs().max() / off.abs().max()).item()
+        out[str(dtype)[6:]] = err
+        if not torch.isfinite(on).all() or err > UNET_ROUTE_TOL[dtype]:
+            raise AssertionError(f"UNet under {flag_name}=1, {dtype}: {err:.3g} of max|eps| "
+                                 f"off the forward without it (tolerance "
+                                 f"{UNET_ROUTE_TOL[dtype]})")
+        del net, on, off
+    torch.cuda.empty_cache()
+    return out
+
+
+def conv3x3_census(unet):
+    """Forward pre-hooks on every ``Conv3x3`` of ``unet`` that count the
+    (x shape, Cout) each call sees; returns the counter and the hooks."""
+    seen = {}
+
+    def hook(mod, args):
+        key = (tuple(args[0].shape), mod.out_channels)
+        seen[key] = seen.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in unet.modules()
+               if isinstance(m, wino.Conv3x3)]
+    return seen, handles
 
 
 def random_batch(cfg, b, gen):
@@ -326,9 +543,7 @@ def training_census(cfg, params, gen):
         total, _ = st.loss(state, random_batch(cfg, batch, gen), gen)
         S.grads_of(total, state.trainable_leaves())
         torch.cuda.synchronize()
-        census[number] = {fn.__name__: dict(fn.shapes) for fn in
-                          (fa.flash_attention, fa.flash_attention_bwd, gn.group_norm_silu,
-                           gn.group_norm)}
+        census[number] = {fn.__name__: dict(fn.shapes) for fn in KERNEL_FNS}
         census[number]["counts"] = counts()
         del state, total
     torch.cuda.empty_cache()
@@ -401,17 +616,19 @@ def train_phase(cfg, params, stage, steps, data_root, out_dir):
     return state, steps_log, wall, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def check_training(stage_no, cfg, params, state, steps_log):
-    """Finite losses, exact per-step launch counts, frozen leaves unchanged
-    (bit for bit), trainable groups moved."""
+def check_training(stage_no, cfg, params, state, steps_log, want=None):
+    """Finite losses, exact per-step launch counts (``want``: kernel ->
+    launches per micro-step), frozen leaves unchanged (bit for bit);
+    returns how many leaves of each trainable group moved."""
+    want = want or {"flash_attention": FLASH_FWD_PER_STEP,
+                    "flash_attention_bwd": FLASH_BWD_PER_STEP}
     for i, rec in enumerate(steps_log):
         if not all(np.isfinite(v) for v in rec["losses"].values()):
             raise AssertionError(f"stage {stage_no} micro-step {i}: non-finite loss {rec}")
-        want = (FLASH_FWD_PER_STEP, FLASH_BWD_PER_STEP)
-        got = (rec["launches"]["flash_attention"], rec["launches"]["flash_attention_bwd"])
+        got = {k: rec["launches"][k] for k in want}
         if got != want:
-            raise AssertionError(f"stage {stage_no} micro-step {i}: flash (fwd, bwd) launches "
-                                 f"{got}, want {want}")
+            raise AssertionError(f"stage {stage_no} micro-step {i}: launches {got}, "
+                                 f"want {want}")
     trainable = S.MAKE_STAGE[stage_no](cfg).trainable
     moved = {}
     for tw, sd in state.params.items():
@@ -465,15 +682,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         return 1
+    cleared = [name for name in FLAGS if os.environ.pop(name, None) is not None]
     card = smi()
     log(card)
     log({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
+    sources = [*fa.SOURCES, wp.SOURCE]
+    cuda_build.build_all(sources)  # one nvcc per source, all started together
     fa.build()
+    wp.build()
     gn.build()
-    log({"phase": "build", "seconds": time.perf_counter() - t0,
-         "sources": ["flash_attention.cu", "flash_attention_bwd.cu"]})
+    log({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sources,
+         "flags_cleared": cleared})
     for source, text in cuda_build.BUILD_LOGS.items():  # registers and spills (-Xptxas=-v)
         log({"phase": "ptxas", "source": source, "kernels": cuda_build.ptxas_summary(text)})
 
@@ -491,16 +712,20 @@ def main() -> int:
                                             pipe.unet, pipe.vae) for p in m.parameters())})
     gen = torch.Generator(device="cuda").manual_seed(0)
     lat = cfg.diffusion.image_size // 8
+    unet_args = (torch.randn(2, lat, lat, 4, device="cuda", generator=gen).bfloat16(),
+                 torch.tensor([981, 981], device="cuda"),
+                 torch.randn(2, 77, 768, device="cuda", generator=gen).bfloat16(),
+                 {lvl: torch.randn(2, 10, 768, device="cuda", generator=gen).bfloat16()
+                  for lvl in ("early", "mid", "late")})
+    conv_census, hooks = conv3x3_census(pipe.unet)
     reset_counts()
     with torch.inference_mode():
-        pipe.unet(torch.randn(2, lat, lat, 4, device="cuda", generator=gen).bfloat16(),
-                  torch.tensor([981, 981], device="cuda"),
-                  torch.randn(2, 77, 768, device="cuda", generator=gen).bfloat16(),
-                  {lvl: torch.randn(2, 10, 768, device="cuda", generator=gen).bfloat16()
-                   for lvl in ("early", "mid", "late")})
+        pipe.unet(*unet_args)
         pipe.vae.decode_latent(torch.randn(1, lat, lat, 4, device="cuda",
                                            generator=gen).bfloat16())
     torch.cuda.synchronize()
+    for handle in hooks:
+        handle.remove()
     census = {fn.__name__: dict(fn.shapes)
               for fn in (fa.flash_attention, gn.group_norm_silu, gn.group_norm)}
 
@@ -568,11 +793,86 @@ def main() -> int:
                     gn_grad_case("group_norm", (4, 16, 16, 1280), torch.bfloat16, 32, 1e-6, gen)]
     log({"phase": "backward_vs_plain", "ok": True})
 
+    # -- 2c. census of the packed route, then the packed kernel vs plain ------
+    with flag("C2D_PACKED_FLASH"):
+        reset_counts()
+        with torch.inference_mode():
+            pipe.unet(*unet_args)
+        torch.cuda.synchronize()
+        packed_serve = {"counts": counts(), "shapes": dict(fa.packed_flash_attention.shapes)}
+        ptcensus = training_census(train_cfg, train_params, gen)
+    want_step = {"packed_flash_attention": PACKED_PER_FORWARD,
+                 "flash_attention": FLASH_FWD_PER_STEP - PACKED_PER_FORWARD,
+                 "flash_attention_bwd": FLASH_BWD_PER_STEP}
+    for n in (2, 3):
+        got = {k: ptcensus[n]["counts"][k] for k in want_step}
+        if got != want_step:
+            raise AssertionError(f"stage {n} census under C2D_PACKED_FLASH=1: {got}")
+    got = (packed_serve["counts"]["packed_flash_attention"],
+           packed_serve["counts"]["flash_attention"])
+    if got != (PACKED_PER_FORWARD, FLASH_FWD_PER_STEP - PACKED_PER_FORWARD):
+        raise AssertionError(f"UNet forward under C2D_PACKED_FLASH=1: (packed, per-head) {got}")
+    packed_shapes = {**packed_serve["shapes"], **ptcensus[2]["packed_flash_attention"],
+                     **ptcensus[3]["packed_flash_attention"]}
+    log({"phase": "packed_census", "serving": packed_serve["counts"],
+         **{f"stage{n}_counts": ptcensus[n]["counts"] for n in (2, 3)},
+         "shapes": [list(k[0]) + [k[1]] for k in packed_shapes]})
+    rows["packed_flash_attention_fwd"] = {}
+    errs["packed_flash_attention_fwd"] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for (qs, pack, _) in packed_shapes:
+            b, h, s, d = qs
+            r = packed_case(b, s, h, d, dtype, gen)
+            rows["packed_flash_attention_fwd"][(qs, pack, str(dtype))] = r
+            errs["packed_flash_attention_fwd"] = max(errs["packed_flash_attention_fwd"],
+                                                     r["max_abs_err"])
+        # ragged: a ghost head (5 heads, pack 3), pack 4, pack 2, S=1024, S off the tile
+        for b, s, h, d in ((1, 1024, 5, 40), (1, 1024, 4, 32), (1, 1024, 2, 64),
+                           (1, 1024, 8, 40), (1, 1000, 3, 40)):
+            r = packed_case(b, s, h, d, dtype, gen, timed=False)
+            errs["packed_flash_attention_fwd"] = max(errs["packed_flash_attention_fwd"],
+                                                     r["max_abs_err"])
+    log({"phase": "packed_vs_plain", "ok": True})
+
+    # -- 2d. the Winograd kernel vs its plain version and a direct conv --------
+    wino_shapes = {k: n for k, n in conv_census.items() if wp.eligible(k[0], k[0][-1], k[1])}
+    log({"phase": "conv3x3_census", "calls": sum(conv_census.values()),
+         "eligible": [[list(k[0]), k[1], n] for k, n in wino_shapes.items()],
+         "not_eligible": [[list(k[0]), k[1], n] for k, n in conv_census.items()
+                          if k not in wino_shapes]})
+    rows["winograd_conv3x3"] = {}
+    errs["winograd_conv3x3"] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for xs, co in dict.fromkeys([*wino_shapes, *BENCH_WINO_SHAPES]):
+            r = wino_case(xs, co, dtype, gen)
+            rows["winograd_conv3x3"][(xs, co, str(dtype))] = r
+            errs["winograd_conv3x3"] = max(errs["winograd_conv3x3"], r["max_abs_err"])
+    # the kernel's entry point over one UNet forward's eligible Conv3x3 calls
+    drive = []
+    for (xs, co), n in wino_shapes.items():
+        x = torch.randn(xs, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(3, 3, xs[-1], co, device="cuda", generator=gen) * 0.02).bfloat16()
+        drive.append((x, w, torch.zeros(co, device="cuda", dtype=torch.bfloat16), n))
+    reset_counts()
+    for x, w, bias, n in drive:
+        for _ in range(n):
+            wp.conv3x3_winograd_pallas(x, w, bias)
+    torch.cuda.synchronize()
+    wino_launches = wp.conv3x3_winograd_pallas.launches
+    if wino_launches != sum(wino_shapes.values()):
+        raise AssertionError(f"winograd: {wino_launches} launches over the census")
+    del drive
+    # the UNet's opt-in C2D_WINOGRAD=1 route (plain PyTorch) vs the direct conv
+    wino_unet_err = unet_route_check(pipe.unet, unet_args, "C2D_WINOGRAD")
+    log({"phase": "winograd_vs_plain", "ok": True, "launches": wino_launches,
+         "unet_route_err_of_max_eps": wino_unet_err})
+
     # -- 3. the main path ----------------------------------------------------
     tok = CLIPTokenizer(max_length=cfg.diffusion.clip_text.max_length)
     wav = waveform()
     text, uncond = tok("rain on a tin roof, distant thunder"), tok("")
     times, per_request = [], []
+    torch.cuda.reset_peak_memory_stats()  # the phase's own peak, not the checks' above
     reset_counts()
     for i in range(REQUESTS):
         before = (fa.flash_attention.launches, gn.group_norm_silu.launches)
@@ -608,6 +908,45 @@ def main() -> int:
          "wall_s": times, "p50_s_excluding_first": statistics.median(times[1:]),
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
          "sm_clock,power_draw,temperature_after": smi("clocks.sm,power.draw,temperature.gpu")})
+
+    # -- 3b. serving under C2D_PACKED_FLASH=1 -----------------------------------
+    packed_unet_err = unet_route_check(pipe.unet, unet_args, "C2D_PACKED_FLASH")
+    # the route's requests interleaved with requests without it (on, off, off,
+    # on), so that the wall times compare within one stretch of the run
+    wall = {True: [], False: []}
+    reset_counts()
+    for i, on in enumerate((True, False, False, True)):
+        before = counts()
+        with flag("C2D_PACKED_FLASH") if on else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            img = pipe.generate(waveform=wav, text_ids=text, uncond_ids=uncond,
+                                model_type="hierarchical", num_steps=50, guidance_scale=7.5,
+                                seed=i)
+            wall[on].append(time.perf_counter() - t0)
+        after = counts()
+        got = tuple(after[k] - before[k] for k in
+                    ("packed_flash_attention", "flash_attention", "group_norm_silu"))
+        want = ((PACKED_PER_IMAGE, FLASH_PER_IMAGE - PACKED_PER_IMAGE, GN_SILU_PER_IMAGE)
+                if on else (0, FLASH_PER_IMAGE, GN_SILU_PER_IMAGE))
+        if img.shape != (1, 512, 512, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"packed-phase request {i}: image {img.shape} {img.dtype} "
+                                 f"std {img.std()}")
+        if got != want:
+            raise AssertionError(f"packed-phase request {i} (route {'on' if on else 'off'}): "
+                                 f"launches (packed, per-head, gn_silu) = {got}, want {want}")
+        log({"phase": "packed_request", "i": i, "route": on, "seconds": wall[on][-1],
+             "image_mean": float(img.mean()), "image_std": float(img.std()),
+             "packed_launches": got[0], "flash_launches": got[1],
+             "group_norm_silu_launches": got[2]})
+    packed_launches = fa.packed_flash_attention.launches
+    packed_seen = dict(fa.packed_flash_attention.shapes)
+    missing = set(packed_seen) - {k for k in rows["packed_flash_attention_fwd"]
+                                  if "bfloat16" in k[2]}
+    if missing:
+        raise AssertionError(f"packed_flash_attention: main-path shapes not checked: {missing}")
+    log({"phase": "packed_path", "card": card, "requests": PACKED_REQUESTS,
+         "wall_s_route_on": wall[True], "wall_s_route_off": wall[False],
+         "unet_route_err_of_max_eps": packed_unet_err, "packed_launches": packed_launches})
 
     # -- 4. small reference: the kernels in fp32 on the card vs the CPU -------
     small = small_config()
@@ -679,6 +1018,31 @@ def main() -> int:
          "launches_per_step": [r["launches"] for r in steps3], "moved_leaves": moved3})
     torch.cuda.empty_cache()
 
+    # -- 5b. stage-2 training under C2D_PACKED_FLASH=1 ---------------------------
+    with flag("C2D_PACKED_FLASH"):
+        state, steps2p, wall2p, peak2p = train_phase(
+            train_cfg, train_params, 2, PACKED_TRAIN_STEPS, data_root,
+            os.path.join(tmp, "packed"))
+    check_training(2, train_cfg, train_params, state, steps2p, want=want_step)
+    del state
+    bs = train_cfg.train.stage2.batch_size
+    level0 = ((bs, 8, 4096, 40), (bs, 8, 4096, 40), "torch.bfloat16")
+    from_packed = fa.flash_attention_bwd.shapes[level0]
+    if from_packed != (PACKED_PER_FORWARD - 1) * PACKED_TRAIN_STEPS or \
+            any(k[0][2] == 4096 for k in fa.flash_attention.shapes):
+        raise AssertionError(f"stage 2 under C2D_PACKED_FLASH=1: {from_packed} backwards at "
+                             f"{level0[0]}; per-head forwards {dict(fa.flash_attention.shapes)}")
+    missing = set(fa.packed_flash_attention.shapes) - set(rows["packed_flash_attention_fwd"])
+    if missing:
+        raise AssertionError(f"packed_flash_attention: training shapes not checked: {missing}")
+    packed_train_launches = fa.packed_flash_attention.launches
+    log({"phase": "train_stage2_packed", "micro_steps": PACKED_TRAIN_STEPS, "batch": bs,
+         "micro_step_s": [r["seconds"] for r in steps2p], "peak_mem_gb": peak2p,
+         "launches_per_step": [r["launches"] for r in steps2p],
+         "bwd_from_packed_route": from_packed,
+         "losses_last": steps2p[-1]["losses"]})
+    torch.cuda.empty_cache()
+
     # -- 6. small training reference: fp32 step on the card vs the CPU --------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -739,6 +1103,51 @@ def main() -> int:
         "bound_ms": per_step_sum("bound_ms"), "bound_by": max(share, key=share.get),
         "library_ms": per_step_sum("library_ms"), "per": "micro-step, bf16",
         "gn_backward_ms": {str(r["x"]): r["backward_ms"] for r in gn_grad_rows},
+    })
+    # the packed forward per image under C2D_PACKED_FLASH=1 (phase 3b), bf16
+    rows_p = rows["packed_flash_attention_fwd"]
+
+    def packed_sum(key):
+        return sum(rows_p[k][key] * n / PACKED_REQUESTS for k, n in packed_seen.items())
+
+    share = {"bytes": 0.0, "operations": 0.0}
+    for k, n in packed_seen.items():
+        share[rows_p[k]["bound_by"]] += n * rows_p[k]["bound_ms"]
+    kernels.append({
+        "name": "packed_flash_attention_fwd", "route": "cuda",
+        "source": "clap2diffusion_tpu_torch/csrc/packed_flash_attention.cu",
+        "replaces": "clap2diffusion_tpu/ops/flash_attention.py:166",
+        "launches": packed_launches, "max_abs_err": errs["packed_flash_attention_fwd"],
+        "ms": packed_sum("kernel_ms"), "plain_ms": packed_sum("plain_ms"),
+        "bound_ms": packed_sum("bound_ms"), "bound_by": max(share, key=share.get),
+        "library_ms": packed_sum("library_ms"), "per_head_ms": packed_sum("per_head_ms"),
+        "per": "image, bf16, C2D_PACKED_FLASH=1", "training_launches": packed_train_launches,
+    })
+    # the Winograd kernel per UNet forward over the eligible census shapes, bf16;
+    # per call at the bench shapes
+    rows_w = rows["winograd_conv3x3"]
+
+    def wino_sum(key):
+        return sum(rows_w[(xs, co, "torch.bfloat16")][key] * n
+                   for (xs, co), n in wino_shapes.items())
+
+    share = {"bytes": 0.0, "operations": 0.0}
+    for (xs, co), n in wino_shapes.items():
+        r = rows_w[(xs, co, "torch.bfloat16")]
+        share[r["bound_by"]] += n * r["bound_ms"]
+    kernels.append({
+        "name": "winograd_conv3x3", "route": "cuda",
+        "source": "clap2diffusion_tpu_torch/csrc/winograd.cu",
+        "replaces": "clap2diffusion_tpu/ops/winograd_pallas.py:69",
+        "launches": wino_launches, "max_abs_err": errs["winograd_conv3x3"],
+        "ms": wino_sum("kernel_ms"), "plain_ms": wino_sum("plain_ms"),
+        "bound_ms": wino_sum("bound_ms"), "bound_by": max(share, key=share.get),
+        "library_ms": wino_sum("library_ms"), "entry_ms": wino_sum("entry_ms"),
+        "per": "UNet forward (batch 2, bf16), eligible Conv3x3 shapes",
+        "bench": [{k: rows_w[(xs, co, dt)][k] for k in
+                   ("x", "cout", "dtype", "kernel_ms", "entry_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")}
+                  for xs, co in BENCH_WINO_SHAPES for dt in ("torch.bfloat16", "torch.float32")],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)

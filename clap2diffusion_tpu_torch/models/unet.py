@@ -8,13 +8,20 @@ branches live under ``audio_inject.{early,mid,late}``.
 
 Self-attention with at least 256 tokens on CUDA runs the flash kernel
 (``ops/flash_attention.py``); every ResnetBlock norm and ``conv_norm_out``
-runs the GroupNorm+SiLU kernel (``ops/groupnorm.py``). The int8 and
-Winograd paths of the JAX package are opt-in there and not ported.
+runs the GroupNorm+SiLU kernel (``ops/groupnorm.py``). The opt-in routes of
+the JAX package are read per call from the same environment variables:
+``C2D_PACKED_FLASH=1`` sends the 4096-token self-attentions to the
+head-packed kernel (``ops/attention.py::mha``), and ``C2D_WINOGRAD=1`` runs
+the eligible 3x3 convs (``Conv3x3``: ``conv_in``, ``conv_out``, each
+ResnetBlock's ``conv1``/``conv2`` and the ``Upsample`` conv, as in JAX) as
+the plain-PyTorch Winograd of ``ops/winograd.py``. ``C2D_INT8=1`` (the JAX
+W8A8 serving path, ``ops/quant.py``) is not ported: the forward raises.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional
 
 import torch
@@ -30,6 +37,7 @@ from clap2diffusion_tpu_torch.models.layers import (
     upsample_nearest2x,
 )
 from clap2diffusion_tpu_torch.ops.attention import mha
+from clap2diffusion_tpu_torch.ops.winograd import Conv3x3
 
 LEVELS = ("early", "mid", "late")
 
@@ -60,10 +68,10 @@ class ResnetBlock(nn.Module):
     def __init__(self, cin: int, cout: int, temb_dim: int, groups: int):
         super().__init__()
         self.norm1 = GroupNorm(cin, groups, 1e-5, silu=True)
-        self.conv1 = conv3x3(cin, cout)
+        self.conv1 = Conv3x3(cin, cout)
         self.time_emb_proj = nn.Linear(temb_dim, cout)
         self.norm2 = GroupNorm(cout, groups, 1e-5, silu=True)
-        self.conv2 = conv3x3(cout, cout)
+        self.conv2 = Conv3x3(cout, cout)
         self.conv_shortcut = Conv1x1(cin, cout) if cin != cout else None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
@@ -169,7 +177,7 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = conv3x3(channels, channels)
+        self.conv = Conv3x3(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(upsample_nearest2x(x))
@@ -216,7 +224,7 @@ class UNet2DCondition(nn.Module):
                                     cfg.injection_mode, cfg.injection_max_concat_tokens)
                 for lvl in LEVELS
             })
-        self.conv_in = conv3x3(cfg.in_channels, ch[0])
+        self.conv_in = Conv3x3(cfg.in_channels, ch[0])
 
         skip_ch = [ch[0]]
         down, cin = [], ch[0]
@@ -253,11 +261,15 @@ class UNet2DCondition(nn.Module):
         self.up_blocks = nn.ModuleList(up)
 
         self.conv_norm_out = GroupNorm(ch[0], g, 1e-5, silu=True)
-        self.conv_out = conv3x3(ch[0], cfg.out_channels)
+        self.conv_out = Conv3x3(ch[0], cfg.out_channels)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 audio_routed: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        if os.environ.get("C2D_INT8") == "1":
+            raise NotImplementedError(
+                "C2D_INT8=1 (the W8A8 serving path of clap2diffusion_tpu/ops/quant.py) is not "
+                "ported to the PyTorch package yet (ROADMAP.md, Queue 1 item 17); unset it")
         cfg = self.cfg
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(temb.to(sample.dtype))

@@ -38,7 +38,8 @@ _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 def _short_name(mangled: str) -> str:
     """``flash_bwd_dq_bf16<64>`` from a mangled kernel name of this repo."""
-    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_(?:bf16|f32)|bwd_delta)", mangled)
+    m = re.search(r"((?:flash_(?:fwd|bwd_dq|bwd_dkdv)|packed_fwd|wino)_(?:bf16|f32)|bwd_delta)",
+                  mangled)
     if m is None:
         return mangled
     args = re.findall(r"Li(\d+)E", mangled)

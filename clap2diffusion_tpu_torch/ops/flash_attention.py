@@ -18,16 +18,31 @@ VAE's 512 is never trained). On CPU tensors both directions run the plain
 versions through the same Function; on CUDA tensors they launch the kernels
 or raise.
 
-Counters: ``flash_attention.launches`` / ``.shapes`` count forward launches
-and the (q shape, k shape, dtype) they ran on; ``flash_attention_bwd.launches``
-/ ``.shapes`` the same for the backward (one count per backward call, which
-is three kernel launches: delta, dK/dV, dQ).
+The head-packed forward replaces the TPU's ``_packed_fwd_kernel`` (launched
+by ``_packed_flash_fwd`` and ``_packed_flash_nhd_fwd``), CUDA C++ in
+``csrc/packed_flash_attention.cu``: self-attention for ``pack`` heads per
+block, read through strides, with the softmax normalised before the PV
+product as the TPU kernel does. ``packed_flash_attention`` takes [B, H, S, D]
+and ``packed_flash_nhd`` the [B, S, H*D] projection layout, with no head
+transposes. Both are differentiable through ``PackedFlashAttentionFunction``,
+whose backward is the per-head backward kernel on [B, H, S, D] views, as the
+JAX VJP recomputes through ``_flash_bwd``. ``flash_attention`` itself takes
+the packed route under the JAX ``_flash_fwd`` rule (``packed_eligible``):
+``C2D_PACKED_FLASH=1``, read per call, and a CUDA tensor.
+
+Counters: ``flash_attention.launches`` / ``.shapes`` count per-head forward
+launches and the (q shape, k shape, dtype) they ran on;
+``packed_flash_attention.launches`` / ``.shapes`` the packed forward's
+launches and (q shape as [B, H, S, D], pack, dtype); ``flash_attention_bwd``
+the same for the backward (one count per backward call, which is three
+kernel launches: delta, dK/dV, dQ).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -36,9 +51,11 @@ from clap2diffusion_tpu_torch.ops import cuda_build
 
 _SOURCE = "flash_attention.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
+_PACKED_SOURCE = "packed_flash_attention.cu"
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_D = 512
 MAX_BWD_D = 160
+MAX_PACKED_D = 64
 
 
 def plain_flash_attention(q, k, v, scale: float) -> torch.Tensor:
@@ -50,6 +67,17 @@ def plain_flash_attention(q, k, v, scale: float) -> torch.Tensor:
     denom = p.sum(dim=-1, keepdim=True)
     pv = torch.matmul(p.to(v.dtype).float(), v.float())
     return (pv / denom).to(q.dtype)
+
+
+def plain_packed_flash_attention(q, k, v, scale: float) -> torch.Tensor:
+    """What the packed kernel computes, in plain PyTorch, per head in the TPU
+    kernel's order: fp32 logits, max, exp, sum, ``p * (1/sum)``, P rounded
+    to v's type, PV with fp32 sums, output cast. Over [B, H, S, D]: packing
+    changes which heads share a kernel instance, not the arithmetic."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p * torch.reciprocal(p.sum(dim=-1, keepdim=True))
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
 def plain_flash_attention_bwd(q, k, v, o, do, scale: float
@@ -100,11 +128,30 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _packed_lib() -> ctypes.CDLL:
+    lib = cuda_build.load(_PACKED_SOURCE)
+    fn = lib.c2d_packed_flash_attention_fwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.c2d_cuda_error_string_packed.restype = ctypes.c_char_p
+        lib.c2d_cuda_error_string_packed.argtypes = [ctypes.c_int]
+    return lib
+
+
+SOURCES = (_SOURCE, _BWD_SOURCE, _PACKED_SOURCE)
+
+
 def build() -> None:
-    """Compile both kernel libraries in parallel and load them (no launch)."""
-    cuda_build.build_all([_SOURCE, _BWD_SOURCE])
+    """Load the three kernel libraries (no launch), building any that are
+    not built yet, in parallel."""
+    cuda_build.build_all(SOURCES)
     _lib()
     _bwd_lib()
+    _packed_lib()
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -235,16 +282,113 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _needs_grad(q, k, v) -> bool:
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+
+
+def packed_eligible(q_shape, k_shape, cuda: bool) -> bool:
+    """The JAX ``_flash_fwd`` test for its packed route (``pack = 128//d``
+    >= 2, h >= 2, Sq >= 1024, Sq == Sk, Sq % 128 == 0, ``C2D_PACKED_FLASH=1``
+    read per call), with a CUDA tensor as the kernel's condition."""
+    _, h, sq, d = q_shape
+    return (cuda and 128 // d >= 2 and h >= 2 and sq >= 1024 and sq == k_shape[2]
+            and sq % 128 == 0 and os.environ.get("C2D_PACKED_FLASH") == "1")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v over [B, H, S, D]; differentiable."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    """softmax(q k^T * scale) v over [B, H, S, D]; differentiable. Takes the
+    packed kernel where ``packed_eligible`` says so, else the per-head one."""
+    if packed_eligible(q.shape, k.shape, q.is_cuda):
+        d, h = q.shape[3], q.shape[1]
+        return packed_flash_attention(q, k, v, scale, min(128 // d, h))
+    if _needs_grad(q, k, v):
         return FlashAttentionFunction.apply(q, k, v, float(scale))
     if q.device.type == "cpu":
         return plain_flash_attention(q, k, v, scale)
     return flash_attention_fwd(q, k, v, scale)[0]
 
 
-for _fn in (flash_attention, flash_attention_bwd):
+def packed_flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float, pack: int, with_lse: bool = False
+                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the packed forward kernel on CUDA [B, H, S, D] tensors (any
+    strides with a contiguous last dim): (out, lse). ``out`` lives in
+    [B, S, H, D] storage, so its [B, S, H*D] view is free; ``lse`` is the
+    fp32 [B, H, S] row log-sum-exp when ``with_lse``, else None."""
+    _check(q, k, v, MAX_PACKED_D, "packed_flash_attention")
+    b, h, s, d = q.shape
+    if k.shape[2] != s:
+        raise ValueError(f"packed_flash_attention: self-attention only, got Sq={s}, "
+                         f"Sk={k.shape[2]}")
+    if not 1 <= pack <= h:
+        raise ValueError(f"packed_flash_attention: pack must be in [1, {h}], got {pack}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = _bshd_empty(b, h, s, d, q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    lib = _packed_lib()
+    with torch.cuda.device(q.device):
+        err = lib.c2d_packed_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            _DTYPE_CODE[q.dtype], b, h, s, d, pack,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise(lib.c2d_cuda_error_string_packed, err, "packed_flash_attention")
+    packed_flash_attention.launches += 1
+    packed_flash_attention.shapes[(tuple(q.shape), pack, str(q.dtype))] += 1
+    return out, lse
+
+
+class PackedFlashAttentionFunction(torch.autograd.Function):
+    """Differentiable packed attention over [B, H, S, D]: the packed kernel
+    forward (with the log-sum-exp) and the per-head backward kernel on CUDA
+    tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, pack: int):
+        if q.device.type == "cpu":
+            out, lse = plain_packed_flash_attention(q, k, v, scale), None
+        else:
+            out, lse = packed_flash_attention_fwd(q, k, v, scale, pack, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def packed_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float, pack: int) -> torch.Tensor:
+    """Self-attention over [B, H, S, D] with ``pack`` heads per kernel block
+    (the JAX ``_packed_flash_fwd``); differentiable."""
+    if _needs_grad(q, k, v):
+        return PackedFlashAttentionFunction.apply(q, k, v, float(scale), int(pack))
+    if q.device.type == "cpu":
+        return plain_packed_flash_attention(q, k, v, scale)
+    return packed_flash_attention_fwd(q, k, v, scale, pack)[0]
+
+
+def packed_flash_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, pack: int,
+                     scale: float) -> torch.Tensor:
+    """Self-attention on [B, S, H*D] projections without head transposes
+    (the JAX ``packed_flash_nhd``): the kernel reads each head's columns in
+    place and writes [B, S, H*D]; the backward runs on [B, H, S, D] views of
+    the same storage."""
+    b, s, hd = q.shape
+
+    def heads(x):
+        return x.unflatten(2, (h, hd // h)).transpose(1, 2)
+
+    out = packed_flash_attention(heads(q), heads(k), heads(v), scale, pack)
+    return out.transpose(1, 2).reshape(b, s, hd)
+
+
+for _fn in (flash_attention, flash_attention_bwd, packed_flash_attention):
     _fn.launches = 0
     _fn.shapes = collections.Counter()

@@ -137,6 +137,11 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
     never modified). ``max_steps`` counts micro-steps. ``resume_from``
     names a checkpoint in ``checkpoint_dir`` whose params, optimizer state
     and step are restored before continuing. ``device=None`` means CUDA."""
+    if os.environ.get("C2D_INT8") == "1":
+        # as the JAX run_stage: the quantisation's round() has zero gradient
+        raise RuntimeError(
+            "C2D_INT8=1 is a serve-only mode (clap2diffusion_tpu/ops/quant.py); unset it for "
+            "training — the quantization round() has zero gradient.")
     dev = resolve_device(device)
     if stage not in MAKE_STAGE:
         raise ValueError(f"unknown stage {stage}")
