@@ -6,7 +6,8 @@
 Phases (each raises on failure, so the exit code is non-zero):
   1. Environment and build: the card's name and power limit, the nvcc builds
      of the four CUDA sources (flash-attention forward and backward, the
-     head-packed forward, the Winograd conv; one nvcc each, in parallel) and
+     head-packed forward with its headers, the Winograd conv; one nvcc each,
+     in parallel) and
      the Triton import, timed. The opt-in flags C2D_PACKED_FLASH,
      C2D_WINOGRAD and C2D_INT8 are cleared; phases 3b and 5b set
      C2D_PACKED_FLASH=1 for themselves only.
@@ -29,8 +30,10 @@ Phases (each raises on failure, so the exit code is non-zero):
      (one UNet forward and one stage-2/3 micro-step each under
      C2D_PACKED_FLASH=1), then the kernel against its plain version at each
      ([B, S, H*D] inputs, bf16 and fp32) and at ragged cases (a ghost head,
-     pack 4, pack 2, S off the tile), the [B, H, S, D] entry against the
-     strided one (same bits), the log-sum-exp against torch.logsumexp and the
+     pack 4, pack 2, S off the tile, S shorter than one key tile, every
+     head dim from 8 to 64, all at B = 1), the Python launch plan against
+     the built library's, a second launch (same bits), the [B, H, S, D]
+     entry against the strided one (same bits), the log-sum-exp against torch.logsumexp and the
      backward through the Function against autograd of the plain version;
      timed beside its bound, the plain version, the per-head kernel on the
      same data and SDPA on the [B, H, S, D] view.
@@ -38,7 +41,13 @@ Phases (each raises on failure, so the exit code is non-zero):
      the census of the UNet's Conv3x3 shapes (batch 2) that ``eligible``
      takes and at tools/bench_wino_pallas.py's shapes, against its plain
      version and against a direct conv (cuDNN, TF32 off), bf16 and fp32,
-     timed beside its bound, the plain version and cuDNN ``F.conv2d``; its
+     launched twice (same bits: the sum over splits of the Cin loop is
+     ordered), its filter transform against the step-by-step plain one,
+     the Python launch plan against the built library's, timed beside its
+     bound, the plain version and cuDNN ``F.conv2d``;
+     untimed ragged shapes at the design's edges (fewer tiles than a block's
+     rows, one 16-channel step, Cin 48 and 112, Cout 8, 24, 72 and 136,
+     B = 1 with H != W, a Cin loop that its split does not divide); its
      entry point driven over one UNet forward's census with counts reset;
      and one full-width UNet forward with C2D_WINOGRAD=1 (the plain-PyTorch
      route) against the direct conv.
@@ -144,6 +153,10 @@ DIRECT_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-3}
 # measured 1.8e-2 (packed attention) and 2.4e-2 (Winograd convs) of
 # max|eps| in bf16 against 4.3e-6 and 3.8e-6 in fp32.
 UNET_ROUTE_TOL = {torch.bfloat16: 6e-2, torch.float32: 1e-4}
+# edges of the Winograd kernel's design, untimed: (x shape, Cout)
+RAGGED_WINO_SHAPES = [((2, 4, 6, 32), 16), ((1, 2, 2, 16), 8), ((1, 6, 10, 48), 24),
+                      ((2, 8, 8, 80), 72), ((1, 4, 4, 112), 8), ((1, 10, 6, 208), 136),
+                      ((2, 16, 16, 1904), 1280)]
 BENCH_WINO_SHAPES = [((2, 64, 64, 320), 320), ((2, 32, 32, 640), 640),
                      ((16, 64, 64, 320), 320)]  # tools/bench_wino_pallas.py:54-58
 FLAGS = ("C2D_PACKED_FLASH", "C2D_WINOGRAD", "C2D_INT8")
@@ -389,8 +402,16 @@ def packed_case(b, s, h, d, dtype, gen, timed=True):
     def heads(x):
         return x.unflatten(2, (h, d)).transpose(1, 2)
 
+    if dtype == torch.bfloat16:  # the plan the records use against the library's own
+        plan = fa.packed_launch_plan(b, h, s, d, pack)
+        built = fa.packed_kernel_plan(b, h, s, d, pack)
+        if any(plan[key] != val for key, val in built.items()):
+            raise AssertionError(f"{name}: packed_launch_plan {plan} is not the library's "
+                                 f"{built}")
     got = fa.packed_flash_nhd(q, k, v, h, pack, scale)
     torch.cuda.synchronize()
+    if not torch.equal(fa.packed_flash_nhd(q, k, v, h, pack, scale), got):
+        raise AssertionError(f"{name}: two identical launches differ")
     ref = fa.plain_packed_flash_attention(heads(q), heads(k), heads(v), scale)
     err = check(name, heads(got), ref, dtype)
     dense = [heads(t).contiguous() for t in (q, k, v)]  # [B, H, S, D] storage
@@ -449,6 +470,14 @@ def wino_case(x_shape, cout, dtype, gen, timed=True):
     torch.cuda.synchronize()
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
+    if not torch.equal(wp.conv3x3_winograd_pallas(x, w, bias), got):
+        raise AssertionError(f"{name}: two identical launches differ")
+    # the filter-transform kernel against its step-by-step plain version: the
+    # same fp32 sums in the same order, so the same bits after the one cast
+    u = wp.winograd_filter(w, dtype)
+    if not torch.equal(u, wp.filter_transform_steps(w).to(dtype)):
+        raise AssertionError(f"{name}: the filter transform gives other bits than "
+                             f"filter_transform_steps")
     ref = wp.plain_conv3x3_winograd_pallas(x, w, bias).float()
     atol, rtol = WINO_TOL[dtype]
     err = (got.float() - ref).abs()
@@ -461,18 +490,23 @@ def wino_case(x_shape, cout, dtype, gen, timed=True):
     derr = (got.float() - direct).abs().max().item() / direct.abs().max().item()
     if derr > DIRECT_TOL[dtype]:
         raise AssertionError(f"{name}: {derr:.3g} of max|direct| off the direct conv")
+    plan = wp.launch_plan(x_shape, cout, dtype)
+    built = wp.kernel_plan(x_shape, cout, dtype, plan["split"])
+    if any(plan[key] != val for key, val in built.items()):
+        raise AssertionError(f"{name}: launch_plan {plan} is not the library's {built}")
     row = {"kernel": "winograd_conv3x3", "x": list(x_shape), "cout": cout,
-           "dtype": str(dtype)[6:], "max_abs_err": err.max().item(),
+           "dtype": str(dtype)[6:], "grid": list(plan["grid"]), "blocks": plan["blocks"],
+           "max_abs_err": err.max().item(),
            "rel_err_vs_plain": err.max().item() / ref.abs().max().item(),
            "rel_err_vs_direct": derr}
     if timed:
         b, h, wd, _ = x_shape
-        u = wp.winograd_filter(w, dtype)
         nbytes = (b * h * wd * cin + 9 * cin * cout + b * h * wd * cout) * x.element_size()
         bms, by = bound_ms(8 * b * h * wd * cin * cout, nbytes, dtype)
         row.update({
             "kernel_ms": time_ms(lambda: wp.winograd_conv_fwd(x, u, bias)),
             "entry_ms": time_ms(lambda: wp.conv3x3_winograd_pallas(x, w, bias)),
+            "filter_ms": time_ms(lambda: wp.winograd_filter(w, dtype)),
             "plain_ms": time_ms(lambda: wp.plain_conv3x3_winograd_pallas(x, w, bias)),
             "library_ms": time_ms(lambda: F.conv2d(nchw, w_oihw, bias, padding=1)),
             "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by})
@@ -826,9 +860,13 @@ def main() -> int:
             rows["packed_flash_attention_fwd"][(qs, pack, str(dtype))] = r
             errs["packed_flash_attention_fwd"] = max(errs["packed_flash_attention_fwd"],
                                                      r["max_abs_err"])
-        # ragged: a ghost head (5 heads, pack 3), pack 4, pack 2, S=1024, S off the tile
+        # ragged, all at B = 1: a ghost head (5 heads, pack 3), pack 4, pack 2, S=1024,
+        # S off the tile, S shorter than one key tile, d = 16 and 8 (a pack above 4),
+        # and the head dims no path gives the kernel (24, 48, 56): every instance runs
         for b, s, h, d in ((1, 1024, 5, 40), (1, 1024, 4, 32), (1, 1024, 2, 64),
-                           (1, 1024, 8, 40), (1, 1000, 3, 40)):
+                           (1, 1024, 8, 40), (1, 1000, 3, 40), (1, 40, 3, 40),
+                           (1, 200, 5, 16), (1, 130, 6, 8), (1, 200, 3, 24),
+                           (1, 1024, 2, 48), (1, 1024, 2, 56)):
             r = packed_case(b, s, h, d, dtype, gen, timed=False)
             errs["packed_flash_attention_fwd"] = max(errs["packed_flash_attention_fwd"],
                                                      r["max_abs_err"])
@@ -846,6 +884,9 @@ def main() -> int:
         for xs, co in dict.fromkeys([*wino_shapes, *BENCH_WINO_SHAPES]):
             r = wino_case(xs, co, dtype, gen)
             rows["winograd_conv3x3"][(xs, co, str(dtype))] = r
+            errs["winograd_conv3x3"] = max(errs["winograd_conv3x3"], r["max_abs_err"])
+        for xs, co in RAGGED_WINO_SHAPES:
+            r = wino_case(xs, co, dtype, gen, timed=False)
             errs["winograd_conv3x3"] = max(errs["winograd_conv3x3"], r["max_abs_err"])
     # the kernel's entry point over one UNet forward's eligible Conv3x3 calls
     drive = []
@@ -1143,10 +1184,11 @@ def main() -> int:
         "ms": wino_sum("kernel_ms"), "plain_ms": wino_sum("plain_ms"),
         "bound_ms": wino_sum("bound_ms"), "bound_by": max(share, key=share.get),
         "library_ms": wino_sum("library_ms"), "entry_ms": wino_sum("entry_ms"),
+        "filter_ms": wino_sum("filter_ms"),
         "per": "UNet forward (batch 2, bf16), eligible Conv3x3 shapes",
         "bench": [{k: rows_w[(xs, co, dt)][k] for k in
-                   ("x", "cout", "dtype", "kernel_ms", "entry_ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by")}
+                   ("x", "cout", "dtype", "blocks", "kernel_ms", "entry_ms", "filter_ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by")}
                   for xs, co in BENCH_WINO_SHAPES for dt in ("torch.bfloat16", "torch.float32")],
     })
     print(json.dumps({"kernels": kernels}), flush=True)

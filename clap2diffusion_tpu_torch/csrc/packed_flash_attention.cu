@@ -4,42 +4,52 @@
 // _packed_fwd_kernel (launched by _packed_flash_fwd on [B,H,S,D] and by
 // _packed_flash_nhd_fwd on the [B,S,H*D] projection layout): self-attention
 // out = softmax(q k^T * scale) v for `pack` heads per kernel instance, with
-// fp32 logits and a softmax that is normalised BEFORE the PV product
-// (p * (1/sum), rounded to v's type, then PV with fp32 sums).
+// fp32 logits.
 //
 // What bounds it on an H100: at the route's shapes ([B,4096,8*40], pack 3)
 // the work is tensor-core operations, 4*S*S*d per head against 4*S*d
-// elements moved. The TPU kernel packed heads because its MXU contracts 128
-// deep: queries were concatenated on the feature axis and K/V made
-// block-diagonal, so one [Bq,120]x[120,3S] product computed three heads'
-// logits. On Hopper that block-diagonal build would triple the QK^T work
-// with zeros, and mma.sync tiles are 16 deep, so the design keeps what the
-// packing was for (one instance per group of heads, no head transposes) and
-// drops the zeros:
-//   * one block of 4 warps owns a 64-query tile of the `pack` heads of one
-//     group (grid = query tiles x B*groups); it loops over the group's heads
-//     and reads each head's d columns straight from the caller's tensors
-//     through their (b, h, s) strides, so the [B,S,H*D] projections are
-//     read in place and the output is written in place into [B,S,H*D]
-//     storage: a group's heads are one contiguous run of each row (240 bytes
-//     at pack 3, d 40). Ghost heads (H not a multiple of pack) are skipped:
-//     no zero head is built or computed;
-//   * each head's products are its own: S = Q K^T and O += P V on
-//     mma.sync.m16n8k16 (bf16 in, fp32 accumulate), each warp 16 query
-//     rows, K and V^T through shared memory in 64-key tiles, d zero-padded to
-//     a multiple of 16 in shared memory only (40 -> 48);
-//   * the TPU's order is kept exactly, which takes two passes over K:
-//     pass 1 computes the row max m and the row sum l (running max, fp32);
-//     pass 2 recomputes S, forms p = exp(s - m) * (1/l) against the FINAL
-//     max, rounds it to bf16 and accumulates PV. That is 3 products instead
-//     of an online softmax's 2, the price of the TPU's rounding of P;
+// elements moved, and one exp2 per logit; but a block that owns few query
+// rows re-reads all of K and V from L2 for them, and a first version of this
+// design (64 query rows a block) spent its time on exactly that. The TPU
+// kernel packed heads because its MXU contracts 128 deep: queries were
+// concatenated on the feature axis and K/V made block-diagonal, so one
+// [Bq,120]x[120,3S] product computed three heads' logits. On Hopper that
+// block-diagonal build would triple the QK^T work with zeros. What the
+// packing still gives here is contiguity: the heads of a group are one run of
+// each [B,S,H*D] row (240 bytes at pack 3, d 40). The bf16 design (tile
+// pipeline in attention_core.cuh):
+//   * one block owns 192 query rows of one group (grid = query tiles x
+//     B*groups) with one warpgroup per head, so the group's heads run side
+//     by side: Q is loaded once and every 64-key K/V tile once for all heads
+//     and for the block's three 64-row sub-tiles of queries, as runs of
+//     pack*d contiguous elements, 16 bytes a thread, by cp.async into a ring
+//     of 3 stages that runs two tiles ahead of the products. At
+//     [2,4096,8*40] that is 132 blocks of 12 warps (150 KB of shared
+//     memory), one wave on 132 SMs, and 264 at batch 4. A ghost head's
+//     columns (H not a multiple of pack) are neither loaded nor computed;
+//     its warpgroup only helps to load;
+//   * two products per key tile and sub-tile, on wgmma (m64n64k16 for
+//     S = Q K^T with Q and K from shared memory, m64n{d}k16 for O += P V
+//     with P from registers), around an online softmax (running max,
+//     P = exp2(s - m) rounded to bf16, the division by the row sum at the
+//     end), as the per-head forward does. The TPU kernel normalises P before
+//     PV against the final max; the plain version keeps that order and the
+//     kernel stays inside the bf16 tolerance against it;
+//   * K is read in place from the packed tile: d = 40 is 2.5 product depths,
+//     Q's columns 40-47 are zeros in its tile, and what lies under them in K
+//     is the next head's data or the tile's zeroed pad chunk. V is read from
+//     the same row-major layout as the MN-major operand: d/8 column tiles,
+//     nothing padded, no transpose through shared memory;
+//   * the tensors are read through their (b, h, s) strides, so [B,S,H*D]
+//     projections are read and written in place and [B,H,S,D] tensors take
+//     the same path;
 //   * for training the caller may pass an fp32 [B*H, S] buffer for the row
-//     log-sum-exp (m + log l, natural log), the convention the per-head
-//     forward uses, which the backward (flash_attention_bwd.cu) reads. With
-//     a null pointer nothing else changes.
-// fp32 inputs take a plain FMA kernel with the same two passes (16 query
-// rows x 32 keys per step, everything in shared memory), exact to fp32
-// rounding.
+//     log-sum-exp (m + log l, natural log), which the backward
+//     (flash_attention_bwd.cu) reads. With a null pointer nothing else
+//     changes.
+// fp32 inputs take a plain FMA kernel with two passes over K (16 query rows
+// x 32 keys per step, everything in shared memory, P normalised before PV),
+// exact to fp32 rounding; it serves the fp32 checks only.
 //
 // Every entry returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not cudaSuccess.
@@ -49,7 +59,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_core.cuh"
+
 namespace {
+
+using namespace c2d;
 
 struct Params {
   const void* q;
@@ -64,215 +78,125 @@ struct Params {
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int BQ = 64;  // query rows per block, 16 per warp
-constexpr int BK = 64;  // keys per shared-memory tile
-constexpr int PAD = 8;  // row padding in elements: conflict-free fragment reads
+// Heads per block at most, by head dim: one warpgroup a head, and the
+// block's threads must fit the registers of the three sub-tiles' accumulators
+// (d <= 32: 16 warps of up to 128 registers; d = 40: 12 of up to 168; beyond:
+// 8 of up to 255). The tiles of max_pack(d) heads fit a block's shared memory.
+__host__ __device__ constexpr int max_pack(int d) { return d <= 32 ? 4 : d <= 40 ? 3 : 2; }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [r0, r0+rows) x the first D columns of a strided matrix into shared
-// memory rows of stride QS, zero beyond the rows or D.
-template <int DP, int QS>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long stride, int r0, int nrows, int limit,
-                                          int D) {
-  constexpr int CH = DP / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < nrows * CH; i += 128) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = zero;
-    if (r0 + r < limit && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * QS + c) = val;
-  }
-}
-
-// S = Q K^T for this warp's 16 rows against BK keys, as BK/8 accumulators of
-// 16x8, scaled to log2 units and masked past the last key.
-template <int DP, int QS>
-__device__ __forceinline__ void qk_tile(float s[BK / 8][4], const __nv_bfloat16* q_s,
-                                        const __nv_bfloat16* k_s, int qr, int g, int t,
-                                        int k0, int S, float sl2) {
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    const __nv_bfloat16* qa = q_s + (qr + g) * QS + ks * 16 + 2 * t;
-    const uint32_t a[4] = {lds32(qa), lds32(qa + 8 * QS), lds32(qa + 8),
-                           lds32(qa + 8 * QS + 8)};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      const __nv_bfloat16* kb = k_s + (n * 8 + g) * QS + ks * 16 + 2 * t;
-      mma_bf16(s[n], a, lds32(kb), lds32(kb + 8));
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = k0 + n * 8 + 2 * t + (e & 1);
-      s[n][e] = key < S ? s[n][e] * sl2 : -INFINITY;
-    }
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(128) packed_fwd_bf16(const Params p) {
-  constexpr int QS = DP + PAD;  // Q and K row stride in shared memory
-  constexpr int VS = BK + PAD;  // V^T row stride
-  constexpr int CH = DP / 8;
-  __shared__ __align__(16) unsigned char smem_raw[(BQ * QS + BK * QS + DP * VS) * 2];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + BQ * QS;
-  __nv_bfloat16* vt_s = k_s + BK * QS;  // [DP][VS]
-
+template <int D>
+__global__ void __launch_bounds__(32 * attn::WARPS_PER_HEAD * max_pack(D))
+    packed_fwd_bf16(const Params p) {
+  constexpr int NT = D / 8, KS = (D + 15) / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / p.groups, grp = blockIdx.y % p.groups;
+  const int nthreads = blockDim.x;
+  const int hi = warp / attn::WARPS_PER_HEAD, wq = warp % attn::WARPS_PER_HEAD;
+  const int q0 = blockIdx.x * attn::QT * attn::BQ;
+  const int b = blockIdx.y / p.groups, h0 = (blockIdx.y % p.groups) * p.pack;
+  const int nh = min(p.pack, p.H - h0);  // real heads of this group
+  const int qbs = attn::q_block_stride(p.pack, D), kbs = attn::kv_block_stride(p.pack * D);
+  const int tile_bytes = attn::kv_tile_bytes(p.pack * D);
+  const uint32_t q_s = smem_u32(smem_raw);
+  const uint32_t kv_s = q_s + attn::QT * attn::BQ / 8 * qbs;
+
+  // Zero everything once: Q's chunks of zeros, and what must be finite: the
+  // pad chunks of the K/V tiles and a ghost head's columns (read under Q's
+  // zero chunks) and the rows past S, which are never copied.
+  for (int i = tid; i < attn::smem_bytes(p.pack, D) / 16; i += nthreads)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h0 * p.qsh;
+  const __nv_bfloat16* kg = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h0 * p.ksh;
+  const __nv_bfloat16* vg = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + h0 * p.vsh;
+  const int ntiles = (p.S + attn::BK - 1) / attn::BK;
+
+  auto load_stage = [&](int slot, int tile) {
+    const uint32_t dst = kv_s + slot * 2 * tile_bytes;  // K tile, then V tile
+    attn::load_tile_async<attn::BK>(dst, kg, p.ksh, p.kss, tile * attn::BK, p.S, nh, D, NT,
+                                    kbs, nthreads);
+    attn::load_tile_async<attn::BK>(dst + tile_bytes, vg, p.vsh, p.vss, tile * attn::BK, p.S,
+                                    nh, D, NT, kbs, nthreads);
+  };
+
+  attn::load_tile_async<attn::QT * attn::BQ>(q_s, qg, p.qsh, p.qss, q0, p.S, nh, D, 2 * KS,
+                                             qbs, nthreads);
+#pragma unroll
+  for (int s = 0; s < attn::STAGES - 1; ++s) {  // Q travels in the first group
+    if (s < ntiles) load_stage(s, s);
+    cp_async_commit();
+  }
+  const bool active = hi < nh;  // a ghost head's warpgroup loads and waits only
+  const int hcol = hi * D;
   const float sl2 = p.scale * 1.4426950408889634f;
-  const int qr = warp * 16;
-  const int r0 = q0 + qr + g, r1 = r0 + 8;
+  float o[attn::QT][NT][4], m[attn::QT][2], l[attn::QT][2];
+#pragma unroll
+  for (int sub = 0; sub < attn::QT; ++sub) {
+    m[sub][0] = m[sub][1] = -INFINITY;
+    l[sub][0] = l[sub][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) o[sub][j][0] = o[sub][j][1] = o[sub][j][2] = o[sub][j][3] = 0.f;
+  }
 
-  for (int hi = 0; hi < p.pack; ++hi) {
-    const int h = grp * p.pack + hi;
-    if (h >= p.H) break;  // ghost head: nothing to compute
-    const __nv_bfloat16* qg =
-        reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
-    const __nv_bfloat16* kg =
-        reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h * p.ksh;
-    const __nv_bfloat16* vg =
-        reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + h * p.vsh;
-    __nv_bfloat16* og = reinterpret_cast<__nv_bfloat16*>(p.o) + b * p.osb + h * p.osh;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<attn::STAGES - 2>();  // this tile has landed
+    fence_proxy_async();                // and wgmma may read what this thread copied
+    __syncthreads();                    // for every thread; the previous tile's slot is free
+    if (tile + attn::STAGES - 1 < ntiles)
+      load_stage((tile + attn::STAGES - 1) % attn::STAGES, tile + attn::STAGES - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const uint32_t k_s = kv_s + (tile % attn::STAGES) * 2 * tile_bytes;
+#pragma unroll
+    for (int sub = 0; sub < attn::QT; ++sub) {  // the tile serves every sub-tile of queries
+      if (q0 + sub * attn::BQ >= p.S) continue;
+      float s[attn::BK / 8][4];
+      attn::qk_tile<KS>(s, q_s + (sub * attn::BQ / 8) * qbs + hi * 2 * KS * 128, qbs,
+                        k_s + hcol / 8 * 128, kbs, lane, tile * attn::BK, p.S);
+      attn::softmax_step<NT>(s, o[sub], m[sub], l[sub], sl2);
+      attn::pv_tile<D>(o[sub], s, k_s + tile_bytes, kbs, hcol / 8);
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
 
-    __syncthreads();  // the previous head's tiles are consumed
-    load_rows<DP, QS>(q_s, qg, p.qss, q0, BQ, p.S, p.D);
-
-    // Pass 1: row max and row sum (running max; the thread holds rows g and
-    // g+8, the 4 threads of a quad share a row).
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    for (int k0 = 0; k0 < p.S; k0 += BK) {
-      __syncthreads();
-      load_rows<DP, QS>(k_s, kg, p.kss, k0, BK, p.S, p.D);
-      __syncthreads();
-      float s[BK / 8][4];
-      qk_tile<DP, QS>(s, q_s, k_s, qr, g, t, k0, p.S, sl2);
-      float mx0 = -INFINITY, mx1 = -INFINITY;
+  const int h = h0 + hi;
+  __nv_bfloat16* og = reinterpret_cast<__nv_bfloat16*>(p.o) + b * p.osb + h * p.osh;
+  float* lg = p.lse == nullptr ? nullptr : p.lse + ((long long)b * p.H + h) * p.S;
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float base0 = mn0 == -INFINITY ? 0.f : mn0;
-      const float base1 = mn1 == -INFINITY ? 0.f : mn1;
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        rs0 += exp2f(s[n][0] - base0) + exp2f(s[n][1] - base0);
-        rs1 += exp2f(s[n][2] - base1) + exp2f(s[n][3] - base1);
-      }
-      l0 = l0 * exp2f(m0 - base0) + rs0;
-      l1 = l1 * exp2f(m1 - base1) + rs1;
-      m0 = mn0;
-      m1 = mn1;
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-    const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-    const float base0 = m0 == -INFINITY ? 0.f : m0;
-    const float base1 = m1 == -INFINITY ? 0.f : m1;
-
-    // Pass 2: P = exp(s - m) * (1/l) against the final max, rounded to bf16
-    // as the TPU kernel rounds it to v's type, then O += P V.
-    float o[DP / 8][4];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-    for (int k0 = 0; k0 < p.S; k0 += BK) {
-      __syncthreads();
-      load_rows<DP, QS>(k_s, kg, p.kss, k0, BK, p.S, p.D);
-      for (int i = tid; i < BK * CH; i += 128) {
-        const int r = i % BK, c = (i / BK) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + r < p.S && c < p.D)
-          val = *reinterpret_cast<const uint4*>(vg + (long long)(k0 + r) * p.vss + c);
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) vt_s[(c + j) * VS + r] = e[j];
-      }
-      __syncthreads();
-      float s[BK / 8][4];
-      qk_tile<DP, QS>(s, q_s, k_s, qr, g, t, k0, p.S, sl2);
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        s[n][0] = exp2f(s[n][0] - base0) * inv0;
-        s[n][1] = exp2f(s[n][1] - base0) * inv0;
-        s[n][2] = exp2f(s[n][2] - base1) * inv1;
-        s[n][3] = exp2f(s[n][3] - base1) * inv1;
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
-          const __nv_bfloat16* vb = vt_s + (j * 8 + g) * VS + kk * 16 + 2 * t;
-          mma_bf16(o[j], a, lds32(vb), lds32(vb + 8));
-        }
-      }
-    }
-
-    if (p.lse != nullptr && t == 0) {
-      // m is in log2 units: sum_k exp(s_k * scale) = 2^m * l
-      float* lg = p.lse + ((long long)b * p.H + h) * p.S;
-      if (r0 < p.S) lg[r0] = m0 * 0.6931471805599453f + logf(l0);
-      if (r1 < p.S) lg[r1] = m1 * 0.6931471805599453f + logf(l1);
-    }
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = j * 8 + 2 * t;  // even; D % 8 == 0 keeps col+1 < D
-      if (col >= p.D) continue;
-      if (r0 < p.S)
-        *reinterpret_cast<uint32_t*>(og + (long long)r0 * p.oss + col) =
-            pack_bf16(o[j][0], o[j][1]);
-      if (r1 < p.S)
-        *reinterpret_cast<uint32_t*>(og + (long long)r1 * p.oss + col) =
-            pack_bf16(o[j][2], o[j][3]);
-    }
+  for (int sub = 0; sub < attn::QT; ++sub) {
+    const int r0 = q0 + sub * attn::BQ + wq * 16 + (lane >> 2);
+    attn::write_output<NT>(o[sub], m[sub], l[sub], og, p.oss, lg, r0, r0 + 8, p.S, lane);
   }
 }
 
-template <int DP>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.S + BQ - 1) / BQ, p.B * p.groups, 1);
-  packed_fwd_bf16<DP><<<grid, 128, 0, stream>>>(p);
+// The bf16 launch: what packed_fwd_bf16 is launched with, and what
+// c2d_packed_flash_plan reports. A pack above max_pack(D) runs as smaller
+// groups (the heads are independent: a smaller group computes the same).
+struct Geometry {
+  int pack, groups;
+  dim3 grid;
+  int threads, smem;
+};
+
+Geometry geometry_bf16(int B, int H, int S, int D, int pack) {
+  if (pack > max_pack(D)) pack = max_pack(D);
+  const int groups = (H + pack - 1) / pack, rows = attn::QT * attn::BQ;
+  return {pack, groups, dim3((S + rows - 1) / rows, B * groups, 1),
+          32 * attn::WARPS_PER_HEAD * pack, attn::smem_bytes(pack, D)};
+}
+
+template <int D>
+cudaError_t launch_bf16(const Params& p, const Geometry& g, cudaStream_t stream) {
+  static int configured = 0;
+  if (g.smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(packed_fwd_bf16<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+    if (e != cudaSuccess) return e;
+    configured = g.smem;
+  }
+  packed_fwd_bf16<D><<<g.grid, g.threads, g.smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -388,7 +312,8 @@ extern "C" {
 // strides (b, h, s); the last dim is contiguous. Self-attention only (Sq ==
 // Sk == S). Requires D % 8 == 0, D <= 64, 1 <= pack <= H, 16-byte aligned
 // pointers and strides that are multiples of 8 elements (the wrapper
-// checks). ``lse`` is null or an fp32 [B*H, S] buffer for the row
+// checks); bf16 runs a pack above max_pack(D) as smaller groups and takes a
+// positive scale. ``lse`` is null or an fp32 [B*H, S] buffer for the row
 // log-sum-exp.
 int c2d_packed_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int dtype, int B, int H, int S, int D,
@@ -399,16 +324,38 @@ int c2d_packed_flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    void* stream) {
   if (D % 8 || D < 8 || D > MAX_D || pack < 1 || pack > H || S < 1)
     return (int)cudaErrorInvalidValue;
-  const int groups = (H + pack - 1) / pack;
-  const Params p{q,   k,   v,   o,   lse, B,   H,   S,   D,   pack, groups, qsb, qsh,
+  if (dtype == 0 && !(scale > 0.f)) return (int)cudaErrorInvalidValue;  // max on raw logits
+  const Geometry g = dtype == 0 ? geometry_bf16(B, H, S, D, pack)
+                                : Geometry{pack, (H + pack - 1) / pack, dim3(), 0, 0};
+  const Params p{q,   k,   v,   o,   lse, B,   H,   S,   D,   g.pack, g.groups, qsb, qsh,
                  qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, scale};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) return (int)launch_f32(p, st);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  if (D <= 16) return (int)launch_bf16<16>(p, st);
-  if (D <= 32) return (int)launch_bf16<32>(p, st);
-  if (D <= 48) return (int)launch_bf16<48>(p, st);
-  return (int)launch_bf16<64>(p, st);
+  switch (D) {  // one instance per head dim: the PV product's width is d exactly
+    case 8: return (int)launch_bf16<8>(p, g, st);
+    case 16: return (int)launch_bf16<16>(p, g, st);
+    case 24: return (int)launch_bf16<24>(p, g, st);
+    case 32: return (int)launch_bf16<32>(p, g, st);
+    case 40: return (int)launch_bf16<40>(p, g, st);
+    case 48: return (int)launch_bf16<48>(p, g, st);
+    case 56: return (int)launch_bf16<56>(p, g, st);
+    default: return (int)launch_bf16<64>(p, g, st);
+  }
+}
+
+// The geometry c2d_packed_flash_attention_fwd launches the bf16 kernel with
+// on these arguments (no launch; host only): out = {heads per block, groups,
+// grid.x, grid.y, threads, dynamic shared memory in bytes, query rows per
+// block, query sub-tiles, keys per tile, stages}.
+int c2d_packed_flash_plan(int B, int H, int S, int D, int pack, int* out) {
+  if (D % 8 || D < 8 || D > MAX_D || pack < 1 || pack > H || S < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g = geometry_bf16(B, H, S, D, pack);
+  const int vals[10] = {g.pack,    g.groups, (int)g.grid.x,       (int)g.grid.y, g.threads,
+                        g.smem,    attn::QT * attn::BQ, attn::QT, attn::BK,      attn::STAGES};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return 0;
 }
 
 const char* c2d_cuda_error_string_packed(int err) {

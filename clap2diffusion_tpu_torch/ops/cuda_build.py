@@ -4,8 +4,9 @@ Each source under ``clap2diffusion_tpu_torch/csrc/`` is compiled by ``nvcc``
 for ``sm_90a`` (Hopper) into a library with a plain C interface, loaded with
 ``ctypes``. The build happens at first use, into ``build/kernels/`` beside
 the package (``C2D_TORCH_BUILD_DIR`` overrides it); the library's name
-carries a hash of the source and flags, so an edited source is rebuilt. A
-failed build raises: there is no fallback.
+carries a hash of the source, of the headers under ``csrc/`` it includes
+and of the flags, so an edited source or header is rebuilt. A failed build
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # -Xptxas=-v prints each kernel's registers, shared memory and spills at build time
@@ -37,9 +38,15 @@ _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
 def _short_name(mangled: str) -> str:
-    """``flash_bwd_dq_bf16<64>`` from a mangled kernel name of this repo."""
-    m = re.search(r"((?:flash_(?:fwd|bwd_dq|bwd_dkdv)|packed_fwd|wino)_(?:bf16|f32)|bwd_delta)",
-                  mangled)
+    """``flash_bwd_dq_bf16<64>`` or ``wino_filter<bf16,f32>`` from a mangled
+    kernel name of this repo."""
+    # a repeated type is mangled as a substitution (S1_): only bf16 can repeat so
+    m = re.search(r"wino_filterI((?:13__nv_bfloat16|f|S\d*_)+)E", mangled)
+    if m is not None:
+        types = re.findall(r"13__nv_bfloat16|f|S\d*_", m.group(1))
+        return "wino_filter<" + ",".join("bf16" if t != "f" else "f32" for t in types) + ">"
+    m = re.search(r"((?:flash_(?:fwd|bwd_dq|bwd_dkdv)|packed_fwd|wino(?:_gemm|_input|_reduce)?)"
+                  r"_(?:bf16|f32)|bwd_delta)", mangled)
     if m is None:
         return mangled
     args = re.findall(r"Li(\d+)E", mangled)
@@ -75,10 +82,33 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels of the port cannot be built")
 
 
-def library_path(source: str) -> str:
-    src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: str, csrc_dir: Optional[str] = None) -> List[str]:
+    """``source`` and every header of ``csrc/`` it includes with quotes,
+    directly or through another header, each once, in the order found."""
+    csrc_dir = csrc_dir or CSRC_DIR
+    found: List[str] = []
+    todo = [source]
+    while todo:
+        name = todo.pop(0)
+        if name in found:
+            continue
+        found.append(name)
+        with open(os.path.join(csrc_dir, name), "r", encoding="utf-8") as f:
+            todo.extend(_INCLUDE.findall(f.read()))
+    return found
+
+
+def library_path(source: str, csrc_dir: Optional[str] = None) -> str:
+    """Where ``source``'s library is built: the name carries a hash of the
+    source, of the headers it includes and of the flags."""
+    csrc_dir = csrc_dir or CSRC_DIR
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in source_files(source, csrc_dir):
+        with open(os.path.join(csrc_dir, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(build_dir(), f"lib{stem}_{digest.hexdigest()[:12]}.so")
 

@@ -20,9 +20,14 @@ or raise.
 
 The head-packed forward replaces the TPU's ``_packed_fwd_kernel`` (launched
 by ``_packed_flash_fwd`` and ``_packed_flash_nhd_fwd``), CUDA C++ in
-``csrc/packed_flash_attention.cu``: self-attention for ``pack`` heads per
-block, read through strides, with the softmax normalised before the PV
-product as the TPU kernel does. ``packed_flash_attention`` takes [B, H, S, D]
+``csrc/packed_flash_attention.cu`` on the tile pipeline of
+``csrc/attention_core.cuh``: self-attention for ``pack`` heads per block,
+read through strides, the group's heads side by side on their own
+warpgroups over K/V tiles loaded once for all of them and for 192 query
+rows, wgmma products, with an online softmax (the
+plain version keeps the TPU kernel's order, which normalises P before the PV
+product; ``packed_launch_plan`` is the launch plan).
+``packed_flash_attention`` takes [B, H, S, D]
 and ``packed_flash_nhd`` the [B, S, H*D] projection layout, with no head
 transposes. Both are differentiable through ``PackedFlashAttentionFunction``,
 whose backward is the per-head backward kernel on [B, H, S, D] views, as the
@@ -73,7 +78,9 @@ def plain_packed_flash_attention(q, k, v, scale: float) -> torch.Tensor:
     """What the packed kernel computes, in plain PyTorch, per head in the TPU
     kernel's order: fp32 logits, max, exp, sum, ``p * (1/sum)``, P rounded
     to v's type, PV with fp32 sums, output cast. Over [B, H, S, D]: packing
-    changes which heads share a kernel instance, not the arithmetic."""
+    changes which heads share a kernel instance, not the arithmetic. The
+    bf16 kernel rounds P against the running max and divides at the end (an
+    online softmax), inside the bf16 tolerance of this order."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     p = p * torch.reciprocal(p.sum(dim=-1, keepdim=True))
@@ -137,6 +144,8 @@ def _packed_lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
             + [ctypes.c_float, ctypes.c_void_p]
         )
+        lib.c2d_packed_flash_plan.restype = ctypes.c_int
+        lib.c2d_packed_flash_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.c2d_cuda_error_string_packed.restype = ctypes.c_char_p
         lib.c2d_cuda_error_string_packed.argtypes = [ctypes.c_int]
     return lib
@@ -293,6 +302,74 @@ def packed_eligible(q_shape, k_shape, cuda: bool) -> bool:
     _, h, sq, d = q_shape
     return (cuda and 128 // d >= 2 and h >= 2 and sq >= 1024 and sq == k_shape[2]
             and sq % 128 == 0 and os.environ.get("C2D_PACKED_FLASH") == "1")
+
+
+# the bf16 packed kernel's tiling (csrc/attention_core.cuh: BQ, QT, BK, STAGES)
+PACKED_BQ, PACKED_QT, PACKED_BK, PACKED_STAGES, PACKED_WARPS_PER_HEAD = 64, 3, 64, 3, 4
+MAX_SMEM = 232_448  # bytes of shared memory one block may use
+SM_COUNT = 132      # an H100's streaming multiprocessors
+
+
+def max_pack(d: int) -> int:
+    """Heads per block at most (csrc/packed_flash_attention.cu: max_pack): one
+    warpgroup a head, and the block's threads must fit the registers of the
+    three sub-tiles' accumulators."""
+    return 4 if d <= 32 else 3 if d <= 40 else 2
+
+
+def _packed_smem_bytes(pack: int, d: int) -> int:
+    """Q tile (every head's columns padded to a multiple of 16, as 128-byte
+    core matrices) and the ring of (K tile, V tile) stages (the heads'
+    columns back to back and one pad chunk)."""
+    q_block = pack * 2 * (-(-d // 16)) * 128
+    kv_block = (pack * d // 8 + 1) * 128
+    return (PACKED_QT * PACKED_BQ // 8 * q_block
+            + PACKED_STAGES * 2 * (PACKED_BK // 8) * kv_block)
+
+
+def packed_launch_plan(b: int, h: int, s: int, d: int, pack: int) -> dict:
+    """How the bf16 packed kernel is launched on [b, h, s, d] with ``pack``
+    heads per block: one block per (192-query tile, batch, group), one
+    warpgroup per head of the group (a ghost head's warpgroup only loads),
+    three 64-row query sub-tiles served by each K/V tile of 64 keys x pack*d
+    columns, the tiles in a ring of 3 stages beside the Q tile. A pack above
+    ``max_pack(d)`` runs as smaller groups (the heads are independent).
+
+    The source owns the geometry and launches by it alone; this is its
+    mirror for planning and records without a card, and
+    ``packed_kernel_plan`` is what the built library reports, which
+    ``chip_smoke.py`` holds this against at every shape it runs."""
+    pack = min(pack, max_pack(d))
+    groups = -(-h // pack)
+    rows = PACKED_QT * PACKED_BQ
+    q_tiles = -(-s // rows)
+    blocks = q_tiles * b * groups
+    return {
+        "pack": pack, "grid": (q_tiles, b * groups), "blocks": blocks, "groups": groups,
+        "heads_per_group": [min(pack, h - g * pack) for g in range(groups)],
+        "ghost_heads": groups * pack - h,
+        "query_rows": rows, "sub_tiles": PACKED_QT,
+        "warps": PACKED_WARPS_PER_HEAD * pack, "threads": 32 * PACKED_WARPS_PER_HEAD * pack,
+        "warps_per_head": PACKED_WARPS_PER_HEAD, "stages": PACKED_STAGES,
+        "key_tiles": -(-s // PACKED_BK),
+        "smem_bytes": _packed_smem_bytes(pack, d),
+        "waves": blocks / SM_COUNT,  # one block per SM at a time
+    }
+
+
+def packed_kernel_plan(b: int, h: int, s: int, d: int, pack: int) -> dict:
+    """The bf16 launch geometry as the built library reports it (host code
+    of ``csrc/packed_flash_attention.cu``, no launch), under
+    ``packed_launch_plan``'s keys."""
+    out = (ctypes.c_int * 10)()
+    lib = _packed_lib()
+    _raise(lib.c2d_cuda_error_string_packed,
+           lib.c2d_packed_flash_plan(b, h, s, d, pack, ctypes.cast(out, ctypes.c_void_p)),
+           "packed_flash_plan")
+    kpack, groups, gx, gy, threads, smem, rows, sub_tiles, bk, stages = out
+    return {"pack": kpack, "groups": groups, "grid": (gx, gy), "blocks": gx * gy,
+            "threads": threads, "smem_bytes": smem, "query_rows": rows,
+            "sub_tiles": sub_tiles, "key_tiles": -(-s // bk), "stages": stages}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
