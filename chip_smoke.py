@@ -5,17 +5,20 @@
 
 Phases (each raises on failure, so the exit code is non-zero):
   1. Environment and build: the card's name and power limit, the nvcc builds
-     of the four CUDA sources (flash-attention forward and backward, the
-     head-packed forward with its headers, the Winograd conv; one nvcc each,
-     in parallel) and
-     the Triton import, timed. The opt-in flags C2D_PACKED_FLASH,
-     C2D_WINOGRAD and C2D_INT8 are cleared; phases 3b and 5b set
-     C2D_PACKED_FLASH=1 for themselves only.
+     of the five CUDA sources (flash-attention forward and backward, the
+     head-packed forward, the Winograd conv, GroupNorm; one nvcc each, in
+     parallel), timed. No kernel of the port is Triton. The opt-in flags
+     C2D_PACKED_FLASH, C2D_WINOGRAD and C2D_INT8 are cleared; phases 3b and
+     5b set C2D_PACKED_FLASH=1 for themselves only.
   2. A census UNet forward (CFG batch 2) and VAE decode at full SD v1.5
      geometry record the shapes the serving path gives each kernel; then
      every kernel is held against its plain PyTorch version at each of those
-     shapes, in bf16 and fp32, plus ragged sequence lengths, and timed
-     beside its roofline bound and one PyTorch library call.
+     shapes, in bf16 and fp32, plus ragged sequence lengths, launched twice
+     (same bits), its Python launch plan held against the built library's,
+     and timed beside its roofline bound and one PyTorch library call: on
+     the host's pace (``kernel_ms``, back-to-back calls) and on the device's
+     (``device_ms``, one call's share of a CUDA graph of 20, which also shows
+     that the kernel can be captured).
   2b. A census stage-2 micro-step (batch 4) and stage-3 micro-step (batch 2)
      record the training path's shapes; the flash-attention backward kernel
      is held against its plain version at each (bf16 and fp32) and at ragged
@@ -78,10 +81,13 @@ Phases (each raises on failure, so the exit code is non-zero):
 
 Timing: CUDA events around repeated launches after a warm-up (inputs stay
 in L2 where they fit, as they do on the path, where the producer just wrote
-them). Bounds use the H100 SXM data-sheet rates: 989 TFLOP/s bf16 tensor,
-67 TFLOP/s fp32, 3.35 TB/s HBM3. The line before the last two is the
-``kernels`` JSON: the forward, packed-forward and GroupNorm times are per
-image (sum over the serving path's calls of one image), the backward's per
+them): ``*_ms`` back to back from Python, so at small shapes the host's cost
+per call; ``*device_ms`` (phase 2) from a CUDA graph of 20 calls
+(``utils/timing.py``), the device's. Bounds use the H100 SXM data-sheet
+rates: 989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32, 3.35 TB/s HBM3. The line
+before the last two is the ``kernels`` JSON: the forward, packed-forward and
+GroupNorm times are per image (sum over the serving path's calls of one
+image), the backward's per
 stage-2 micro-step, the Winograd kernel's per UNet forward over the eligible
 census shapes (with per-call rows at the bench shapes). The last line is
 the device JSON.
@@ -112,6 +118,7 @@ from clap2diffusion_tpu_torch.ops import winograd as wino
 from clap2diffusion_tpu_torch.ops import winograd_pallas as wp
 from clap2diffusion_tpu_torch.train import stages as S
 from clap2diffusion_tpu_torch.train import trainer as T
+from clap2diffusion_tpu_torch.utils.timing import graph_ms
 
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -229,23 +236,33 @@ def flash_case(qs, ks, dtype, gen):
     v = torch.randn(ks, device="cuda", generator=gen).to(dtype)
     scale = qs[-1] ** -0.5
     name = f"flash {list(qs)} k{list(ks)} {str(dtype)[6:]}"
+    b, h, sq, d = qs
+    sk = ks[2]
+    if dtype == torch.bfloat16:  # the plan the records use against the library's own
+        plan, built = fa.flash_launch_plan(b, h, sq, sk, d), fa.flash_kernel_plan(b, h, sq, sk, d)
+        if any(plan[key] != val for key, val in built.items()):
+            raise AssertionError(f"{name}: flash_launch_plan {plan} is not the library's {built}")
     got = fa.flash_attention(q, k, v, scale)
     torch.cuda.synchronize()
+    if not torch.equal(fa.flash_attention(q, k, v, scale), got):
+        raise AssertionError(f"{name}: two identical launches differ")
     err = check(name, got, fa.plain_flash_attention(q, k, v, scale), dtype)
     # the UNet's layout: heads of a [B, S, H*D] projection, read through strides
     strided = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
     if not torch.equal(fa.flash_attention(*strided, scale), got):
         raise AssertionError(f"{name}: strided [B,S,H,D] inputs give another result")
-    b, h, sq, d = qs
-    sk = ks[2]
     bms, by = bound_ms(4 * b * h * sq * sk * d, 2 * b * h * (sq + sk) * d * q.element_size(),
                        dtype)
+    kernel = lambda: fa.flash_attention(q, k, v, scale)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
     row = {"kernel": "flash_attention_fwd", "q": list(qs), "k": list(ks),
            "dtype": str(dtype)[6:], "max_abs_err": err,
-           "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v, scale)),
+           "kernel_ms": time_ms(kernel), "device_ms": graph_ms(kernel),
            "plain_ms": time_ms(lambda: fa.plain_flash_attention(q, k, v, scale)),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+           "library_ms": time_ms(library), "library_device_ms": graph_ms(library),
            "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by}
+    if dtype == torch.bfloat16:
+        row.update({k: plan[k] for k in ("blocks", "threads", "smem_bytes", "o_regs")})
     log(row)
     return row
 
@@ -258,22 +275,36 @@ def gn_case(kind, shape, dtype, groups, eps, gen):
     b = (torch.randn(c, device="cuda", generator=gen) * 0.1).to(dtype)
     fn = gn.group_norm_silu if silu else gn.group_norm
     name = f"{kind} {list(shape)} {str(dtype)[6:]} eps={eps}"
+    plan = gn.launch_plan(tuple(shape), dtype, groups, gn.device_capacity(0))
+    built = gn.kernel_plan(shape, dtype, groups)
+    if any(plan[key] != val for key, val in built.items()):
+        raise AssertionError(f"{name}: launch_plan {plan} is not the library's {built}")
+    launches = fn.launches
     got = fn(x, w, b, groups, eps)
     torch.cuda.synchronize()
+    if fn.launches != launches + 1:
+        raise AssertionError(f"{name}: one call made {fn.launches - launches} launches")
+    if not torch.equal(fn(x, w, b, groups, eps), got):
+        raise AssertionError(f"{name}: two identical launches differ")
     err = check(name, got, gn.plain_group_norm(x, w, b, groups, eps, silu), dtype)
     nchw = x.permute(0, 3, 1, 2)  # channels_last view: the same memory
     n = x.numel()
     bms, by = bound_ms((9 if silu else 5) * n, (2 * n + 2 * c) * x.element_size(),
                        torch.float32)
-    library = time_ms(lambda: F.group_norm(nchw, groups, w, b, eps))
+    kernel = lambda: fn(x, w, b, groups, eps)  # noqa: E731
+    library = lambda: F.group_norm(nchw, groups, w, b, eps)  # noqa: E731
     row = {"kernel": kind, "x": list(shape), "dtype": str(dtype)[6:], "eps": eps,
-           "max_abs_err": err, "kernel_ms": time_ms(lambda: fn(x, w, b, groups, eps)),
+           "max_abs_err": err, "kernel_ms": time_ms(kernel), "device_ms": graph_ms(kernel),
            "plain_ms": time_ms(lambda: gn.plain_group_norm(x, w, b, groups, eps, silu)),
-           "library_ms": None if silu else library, "bound_ms": bms, "bound_us": bms * 1e3,
-           "bound_by": by}
+           "library_ms": None, "library_device_ms": None, "bound_ms": bms,
+           "bound_us": bms * 1e3, "bound_by": by, "grid": plan["grid"],
+           "resident": plan["resident"], "x_reads": plan["x_reads"]}
     if silu:  # no single PyTorch call computes GN+SiLU; two calls, for scale
-        row["group_norm_then_silu_ms"] = time_ms(
-            lambda: F.silu(F.group_norm(nchw, groups, w, b, eps)))
+        two = lambda: F.silu(library())  # noqa: E731
+        row.update({"group_norm_then_silu_ms": time_ms(two),
+                    "group_norm_then_silu_device_ms": graph_ms(two)})
+    else:
+        row.update({"library_ms": time_ms(library), "library_device_ms": graph_ms(library)})
     log(row)
     return row
 
@@ -722,7 +753,7 @@ def main() -> int:
     log({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    sources = [*fa.SOURCES, wp.SOURCE]
+    sources = [*fa.SOURCES, wp.SOURCE, gn.SOURCE]
     cuda_build.build_all(sources)  # one nvcc per source, all started together
     fa.build()
     wp.build()
@@ -765,6 +796,7 @@ def main() -> int:
 
     rows = {"flash_attention_fwd": {}, "group_norm_silu": {}, "group_norm": {}}
     errs = {k: 0.0 for k in rows}
+    pad_gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.bfloat16, torch.float32):
         for (qs, ks, _) in census["flash_attention"]:
             r = flash_case(qs, ks, dtype, gen)
@@ -773,6 +805,12 @@ def main() -> int:
         for qs, ks in (((1, 2, 1000, 40), (1, 2, 1000, 40)), ((2, 3, 300, 80), (2, 3, 777, 80)),
                        ((1, 1, 333, 512), (1, 1, 130, 512))):  # ragged tiles
             r = flash_case(qs, ks, dtype, gen)
+            errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], r["max_abs_err"])
+        # d = 24 and 256 run on the next instance up (32, and the four-warpgroup
+        # kernel), their columns past d never stored; drawn from their own
+        # generator, so that the later phases draw the inputs they always drew
+        for qs, ks in (((1, 2, 100, 24), (1, 2, 100, 24)), ((1, 1, 200, 256), (1, 1, 150, 256))):
+            r = flash_case(qs, ks, dtype, pad_gen)
             errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], r["max_abs_err"])
         for kind in ("group_norm_silu", "group_norm"):
             for (shape, _, groups, eps) in census[kind]:
@@ -807,7 +845,8 @@ def main() -> int:
                        ((1, 2, 200, 160), (1, 2, 100, 160))):  # ragged tiles, small d
             r = bwd_case(qs, ks, dtype, gen, timed=False)
             errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], r["max_abs_err"])
-        # d > 160 (the VAE) has no backward; its forward writes lse from column chunk 0
+        # d > 160 (the VAE) has no backward; its forward (four warpgroups over the
+        # columns) writes lse from the first
         q5, k5, v5 = (torch.randn(sh, device="cuda", generator=gen).to(dtype)
                       for sh in ((1, 1, 333, 512), (1, 1, 130, 512), (1, 1, 130, 512)))
         log({"kernel": "flash_attention_fwd lse", "q": [1, 1, 333, 512], "dtype": str(dtype)[6:],
@@ -1107,9 +1146,9 @@ def main() -> int:
     meta = {
         "flash_attention_fwd": ("cuda", "clap2diffusion_tpu_torch/csrc/flash_attention.cu",
                                 "clap2diffusion_tpu/ops/flash_attention.py:51"),
-        "group_norm_silu": ("triton", "clap2diffusion_tpu_torch/ops/groupnorm.py",
+        "group_norm_silu": ("cuda", "clap2diffusion_tpu_torch/csrc/group_norm.cu",
                             "clap2diffusion_tpu/ops/groupnorm.py:31"),
-        "group_norm": ("triton", "clap2diffusion_tpu_torch/ops/groupnorm.py",
+        "group_norm": ("cuda", "clap2diffusion_tpu_torch/csrc/group_norm.cu",
                        "clap2diffusion_tpu/ops/groupnorm.py:31"),
     }
     kernels = []
@@ -1121,9 +1160,16 @@ def main() -> int:
             "bound_ms": per_image(kind, "bound_ms"),
             "bound_by": bound_by(kind),
             "library_ms": per_image(kind, "library_ms"), "per": "image, bf16",
+            "device_ms": per_image(kind, "device_ms"),
+            "library_device_ms": per_image(kind, "library_device_ms"),
             "training_launches": train_launches[
                 "flash_attention" if kind == "flash_attention_fwd" else kind],
         })
+        if kind == "group_norm_silu":
+            kernels[-1].update({
+                "group_norm_then_silu_ms": per_image(kind, "group_norm_then_silu_ms"),
+                "group_norm_then_silu_device_ms": per_image(kind,
+                                                            "group_norm_then_silu_device_ms")})
     # the backward per stage-2 micro-step: the census's calls, bf16
     per_step = tcensus[2]["flash_attention_bwd"]  # {(q, k, dtype): calls in one micro-step}
     rows_b = rows["flash_attention_bwd"]

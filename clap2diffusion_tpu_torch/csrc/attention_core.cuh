@@ -4,14 +4,16 @@
 // optional log-sum-exp.
 //
 // A block owns QT sub-tiles of BQ = 64 query rows of a run of `nh` heads that
-// share their K/V tile loads (the heads of one packed group; a per-head
-// kernel is the case nh = 1). One warpgroup (4 warps, 16 query rows each)
-// serves each head, so the heads run side by side, and every K/V tile
-// serves all QT sub-tiles before its stage is released: a block that owns
-// few query rows re-reads K and V from L2 too often. A tile in shared
-// memory holds the whole run: the `nh` heads' d columns one after another,
-// as they lie in global memory where the tensors are [B, S, H*D]
-// projections.
+// share their K/V tile loads, and every K/V tile serves all QT sub-tiles
+// before its stage is released: a block that owns few query rows re-reads K
+// and V from L2 too often. In the packed kernel one warpgroup (4 warps, 16
+// query rows each) serves each head of a group and walks the QT sub-tiles,
+// so the heads run side by side; the per-head kernel
+// (flash_attention.cu) is the case nh = 1 with one warpgroup per sub-tile,
+// so that each holds one sub-tile's accumulator (d/2 registers a thread)
+// where d reaches 160. A tile in shared memory holds the whole run: the `nh`
+// heads' d columns one after another, as they lie in global memory where the
+// tensors are [B, S, H*D] projections.
 //
 //   * Tiles are stored as wgmma core matrices, 8 rows x 16 bytes each:
 //     [row / 8][16-byte column chunk][row % 8]. Q is loaded once and read
@@ -167,8 +169,19 @@ __device__ __forceinline__ void softmax_step(float s[BK / 8][4], float o[NT][4],
   }
 }
 
+// O[:, N0 : N0 + N] += P V[:, N0 : N0 + N] for one k16 step, N = min(64, D - N0),
+// then the next 64 columns: one product where D <= 64.
+template <int D, int N0 = 0>
+__device__ __forceinline__ void pv_columns(float o[D / 8][4], const uint32_t a[4], uint32_t v,
+                                           int kbs) {
+  constexpr int N = D - N0 < 64 ? D - N0 : 64;
+  wgmma_rs<N>(&o[N0 / 8][0], a, wgmma_desc(v + N0 / 8 * 128, kbs, 128), 1);
+  if constexpr (N0 + 64 < D) pv_columns<D, N0 + 64>(o, a, v, kbs);
+}
+
 // O += P V for BK keys: P from the softmax registers rounded to bf16, V read
-// MN-major from the tile; D = d columns exactly. Started and awaited.
+// MN-major from the tile; D = d columns exactly, in products of at most 64
+// columns. Started and awaited.
 template <int D>
 __device__ __forceinline__ void pv_tile(float o[D / 8][4], const float s[BK / 8][4],
                                         uint32_t v_s, int kbs, int chunk) {
@@ -183,7 +196,7 @@ __device__ __forceinline__ void pv_tile(float o[D / 8][4], const float s[BK / 8]
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs<D>(&o[0][0], pf[kk], wgmma_desc(v_s + 2 * kk * kbs + chunk * 128, kbs, 128), 1);
+    pv_columns<D>(o, pf[kk], v_s + 2 * kk * kbs + chunk * 128, kbs);
   wgmma_commit();
   wgmma_wait<0>();
 #pragma unroll
@@ -198,18 +211,23 @@ __device__ __forceinline__ void pv_tile(float o[D / 8][4], const float s[BK / 8]
   }
 }
 
-// The epilogue of the thread's rows r0 = g and r1 = g + 8 (absolute row
-// numbers): O / l as bf16 pairs, and the row log-sum-exp (natural log; m is
-// in log2 units) where `lse` is not null.
-template <int NT>
-__device__ __forceinline__ void write_output(const float o[NT][4], float m[2], float l[2],
-                                             __nv_bfloat16* og, long long oss, float* lse,
-                                             int r0, int r1, int S, int lane) {
+// The row sums of the thread's rows over the 4 threads of its quad.
+__device__ __forceinline__ void quad_sum(float l[2]) {
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
     l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
   }
+}
+
+// Rows r0 = g and r1 = g + 8 (absolute row numbers) of O / l as bf16 pairs,
+// l the whole row sum, its first `ncols` columns (a multiple of 8), and the
+// row log-sum-exp (natural log; m is in log2 units) where `lse` is not null.
+template <int NT>
+__device__ __forceinline__ void store_rows(const float o[NT][4], const float m[2],
+                                           const float l[2], __nv_bfloat16* og, long long oss,
+                                           float* lse, int r0, int r1, int S, int lane,
+                                           int ncols = NT * 8) {
   const int t = lane & 3;
   const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
   if (lse != nullptr && t == 0) {
@@ -219,6 +237,7 @@ __device__ __forceinline__ void write_output(const float o[NT][4], float m[2], f
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int col = j * 8 + 2 * t;
+    if (j * 8 >= ncols) break;
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(og + (long long)r0 * oss + col) =
           pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
@@ -226,6 +245,17 @@ __device__ __forceinline__ void write_output(const float o[NT][4], float m[2], f
       *reinterpret_cast<uint32_t*>(og + (long long)r1 * oss + col) =
           pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
   }
+}
+
+// The epilogue of a warpgroup that saw every key: the quad's partial row
+// sums added, then store_rows.
+template <int NT>
+__device__ __forceinline__ void write_output(const float o[NT][4], float m[2], float l[2],
+                                             __nv_bfloat16* og, long long oss, float* lse,
+                                             int r0, int r1, int S, int lane,
+                                             int ncols = NT * 8) {
+  quad_sum(l);
+  store_rows<NT>(o, m, l, og, oss, lse, r0, r1, S, lane, ncols);
 }
 
 }  // namespace attn

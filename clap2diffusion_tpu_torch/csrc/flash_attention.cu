@@ -7,29 +7,44 @@
 //
 // What bounds it on an H100: at the UNet's shapes ([2,8,4096,40],
 // [2,8,1024,80]) and the VAE's ([1,1,4096,512]) the work is tensor-core
-// operations (4*S*S*d per head against 2*S*d*4 bytes moved); at [2,8,256,160]
-// it is bytes. The TPU kernel kept all of K and V in VMEM; here K+V of one
-// head at 4096x512 bf16 is 8 MB against 227 KB of shared memory per block,
-// so the design streams them:
-//   * one block of 4 warps per (batch*head, 64-query tile, column chunk);
-//   * K and V stream through shared memory in 64-key tiles, V stored
-//     transposed so the PV operand is read as 32-bit pairs;
-//   * each warp owns 16 query rows; S = Q K^T and O += P V run on
-//     mma.sync.m16n8k16 (bf16 in, fp32 accumulate); P goes from the S
-//     accumulators to the A operand in registers, without shared memory;
-//   * an online softmax (running max and sum in fp32, exp2 with the scale
-//     folded into log2(e)) replaces the TPU's single pass over all keys;
-//   * head dims are zero-padded to a multiple of 16 in shared memory only
-//     (d=40 -> 48); device memory holds the real width;
-//   * the fp32 accumulator of a 64-row tile at d=512 does not fit in
-//     registers, so for d > 160 the output columns are split into chunks of
-//     128 across blocks (grid.z); each chunk recomputes S;
+// operations (4*S*S*d per head against 2*S*d*4 bytes moved) and, at d = 40,
+// as much the one exp2 per logit; at [2,8,256,160] it is bytes. The TPU
+// kernel kept all of K and V in VMEM; here K+V of one head at 4096x512 bf16
+// is 8 MB against 227 KB of shared memory per block, so K and V stream
+// through shared memory, and a block that owns few query rows re-reads them
+// from L2 too often (a first design with 64 rows a block moved 805 MB a call
+// at [2,8,4096,40]). The bf16 design is the tile pipeline of
+// attention_core.cuh with one head a block (nh = 1):
+//   * d <= 160: a block owns 192 query rows, three 64-row sub-tiles, each on
+//     its own warpgroup (384 threads), so that a thread holds one
+//     sub-tile's accumulator (d/2 registers: 20, 40, 80 at d = 40, 80, 160);
+//     every 64-key K/V tile, loaded once by cp.async into a ring of 3 stages
+//     that runs two tiles ahead, serves all three. S = Q K^T on wgmma
+//     (m64n64k16, Q and K from shared memory), an online softmax in fp32
+//     base 2, O += P V on wgmma with P from registers and V read MN-major
+//     from the tile (products of at most 64 columns), the division by the
+//     row sum in the epilogue. Head dims that are not an instance (8, 24,
+//     56, 72, ...) run on the next instance up, the columns past d zero in
+//     shared memory and never stored;
+//   * d > 160 (the VAE's 512): a 64-row accumulator of 512 columns does not
+//     fit one warpgroup's registers, and splitting the columns across blocks
+//     makes each recompute S. A block owns 64 query rows and 4 warpgroups:
+//     warpgroup w computes S for keys [16w, 16w + 16) of each 64-key tile at
+//     full depth (m64n16k16 x 32), the row maxima meet in shared memory, P
+//     (bf16) is written there, and each warpgroup adds P V[:, 128w : 128w +
+//     128] to its own 64 accumulator registers (m64n64k16, both operands from
+//     shared memory). K and V have one buffer each: the next K loads during
+//     the softmax and PV, the next V during the next S;
+//   * Sq != Sk and ragged edges are masked (keys past Sk are -inf, rows past
+//     Sq are not stored); q, k, v and o are read and written through their
+//     (b, h, s) strides, so [B, S, H, D] views of projections are taken in
+//     place;
 //   * for training, the caller may pass an fp32 [B*H, Sq] buffer for the row
 //     log-sum-exp (m + log l of the online softmax, natural log), which the
-//     backward (flash_attention_bwd.cu) reads; column chunk 0 writes it. With
-//     a null pointer nothing else changes: serving's outputs are the same bits.
+//     backward (flash_attention_bwd.cu) reads. With a null pointer nothing
+//     else changes: serving's outputs are the same bits.
 // fp32 inputs take a plain FMA kernel (16 query rows x 32 keys per step,
-// everything in shared memory), exact to fp32 rounding.
+// everything in shared memory), exact to fp32 rounding; it serves the checks.
 //
 // Every entry returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not cudaSuccess.
@@ -39,7 +54,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_core.cuh"
+
 namespace {
+
+using namespace c2d;
 
 struct Params {
   const void* q;
@@ -54,205 +73,317 @@ struct Params {
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int BQ = 64;  // query rows per block, 16 per warp
-constexpr int BK = 64;  // keys per shared-memory tile
-constexpr int PAD = 8;  // row padding in elements: conflict-free fragment reads
+constexpr int ROWS = attn::QT * attn::BQ;  // query rows of a block, d <= 160
+constexpr int NARROW_WG = attn::QT;        // one warpgroup per sub-tile
+constexpr int WIDE_D = 512;                // the instance for 160 < d <= 512
+constexpr int WIDE_WG = 4;                 // warpgroups of the wide kernel
+constexpr int WIDE_COLS = WIDE_D / WIDE_WG;
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The instance a head dim runs on: d itself where the UNet or the VAE has it,
+// else the next one up (the columns past d are zeros in shared memory).
+__host__ __device__ constexpr int instance_d(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 40 ? 40 : d <= 48 ? 48 : d <= 64 ? 64
+       : d <= 80 ? 80 : d <= 96 ? 96 : d <= 128 ? 128 : d <= 160 ? 160 : WIDE_D;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int DP, int DVC>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
-  constexpr int QS = DP + PAD;  // Q and K row stride in shared memory
-  constexpr int VS = BK + PAD;  // V^T row stride
-  constexpr int CH = DP / 8;    // 16-byte chunks per Q/K row
-  constexpr int VCH = DVC / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + BQ * QS;
-  __nv_bfloat16* vt_s = k_s + BK * QS;  // [DVC][VS]
-
+// Up to d = 40 the registers of two blocks fit an SM (85 a thread; d = 48
+// spilled): six warpgroups there hide each other's softmax behind the tensor
+// cores (0.272 -> 0.235 ms at [2,8,4096,40] on an H100).
+template <int D>
+__global__ void __launch_bounds__(32 * attn::WARPS_PER_HEAD * NARROW_WG, D <= 40 ? 2 : 1)
+    flash_fwd_bf16(const Params p) {
+  constexpr int NT = D / 8, KS = (D + 15) / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
+  const int nthreads = blockDim.x;
+  const int sub = warp / attn::WARPS_PER_HEAD, wq = warp % attn::WARPS_PER_HEAD;
+  const int q0 = blockIdx.x * ROWS;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int c0 = blockIdx.z * DVC;
-  const __nv_bfloat16* qg =
-      reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
-  const __nv_bfloat16* kg =
-      reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h * p.ksh;
-  const __nv_bfloat16* vg =
-      reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + h * p.vsh;
-  __nv_bfloat16* og = reinterpret_cast<__nv_bfloat16*>(p.o) + b * p.osb + h * p.osh;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int qbs = attn::q_block_stride(1, D), kbs = attn::kv_block_stride(D);
+  const int tile_bytes = attn::kv_tile_bytes(D);
+  const uint32_t q_s = smem_u32(smem_raw);
+  const uint32_t kv_s = q_s + ROWS / 8 * qbs;
 
-  for (int i = tid; i < BQ * CH; i += 128) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = zero;
-    if (q0 + r < p.Sq && c < p.D)
-      val = *reinterpret_cast<const uint4*>(qg + (q0 + r) * p.qss + c);
-    *reinterpret_cast<uint4*>(q_s + r * QS + c) = val;
+  // Zero everything once: Q's columns past d, the K/V columns past d and pad
+  // chunks (read under Q's zeros), and the rows past Sq or Sk, which are
+  // never copied, must be finite.
+  for (int i = tid; i < attn::smem_bytes(1, D) / 16; i += nthreads)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
+  const __nv_bfloat16* kg = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h * p.ksh;
+  const __nv_bfloat16* vg = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + h * p.vsh;
+  const int ntiles = (p.Sk + attn::BK - 1) / attn::BK;
+
+  auto load_stage = [&](int slot, int tile) {
+    const uint32_t dst = kv_s + slot * 2 * tile_bytes;  // K tile, then V tile
+    attn::load_tile_async<attn::BK>(dst, kg, 0, p.kss, tile * attn::BK, p.Sk, 1, p.D, NT, kbs,
+                                    nthreads);
+    attn::load_tile_async<attn::BK>(dst + tile_bytes, vg, 0, p.vss, tile * attn::BK, p.Sk, 1,
+                                    p.D, NT, kbs, nthreads);
+  };
+
+  attn::load_tile_async<ROWS>(q_s, qg, 0, p.qss, q0, p.Sq, 1, p.D, 2 * KS, qbs, nthreads);
+#pragma unroll
+  for (int s = 0; s < attn::STAGES - 1; ++s) {  // Q travels in the first group
+    if (s < ntiles) load_stage(s, s);
+    cp_async_commit();
   }
-
-  float o[DVC / 8][4];
-#pragma unroll
-  for (int j = 0; j < DVC / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const bool active = q0 + sub * attn::BQ < p.Sq;  // else this warpgroup loads and waits only
   const float sl2 = p.scale * 1.4426950408889634f;
-  const int qr = warp * 16;
-
-  for (int k0 = 0; k0 < p.Sk; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed (and Q is stored)
-    for (int i = tid; i < BK * CH; i += 128) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 val = zero;
-      if (k0 + r < p.Sk && c < p.D)
-        val = *reinterpret_cast<const uint4*>(kg + (k0 + r) * p.kss + c);
-      *reinterpret_cast<uint4*>(k_s + r * QS + c) = val;
-    }
-    for (int i = tid; i < BK * VCH; i += 128) {
-      const int r = i % BK, c = (i / BK) * 8;
-      uint4 val = zero;
-      if (k0 + r < p.Sk && c0 + c < p.D)
-        val = *reinterpret_cast<const uint4*>(vg + (k0 + r) * p.vss + c0 + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+  float o[NT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vt_s[(c + j) * VS + r] = e[j];
-    }
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<attn::STAGES - 2>();  // this tile has landed
+    fence_proxy_async();                // and wgmma may read what this thread copied
+    __syncthreads();                    // for every thread; the previous tile's slot is free
+    if (tile + attn::STAGES - 1 < ntiles)
+      load_stage((tile + attn::STAGES - 1) % attn::STAGES, tile + attn::STAGES - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const uint32_t k_s = kv_s + (tile % attn::STAGES) * 2 * tile_bytes;
+    float s[attn::BK / 8][4];
+    attn::qk_tile<KS>(s, q_s + sub * attn::BQ / 8 * qbs, qbs, k_s, kbs, lane, tile * attn::BK,
+                      p.Sk);
+    attn::softmax_step<NT>(s, o, m, l, sl2);
+    attn::pv_tile<D>(o, s, k_s + tile_bytes, kbs, 0);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  __nv_bfloat16* og = reinterpret_cast<__nv_bfloat16*>(p.o) + b * p.osb + h * p.osh;
+  float* lg = p.lse == nullptr ? nullptr : p.lse + (long long)blockIdx.y * p.Sq;
+  const int r0 = q0 + sub * attn::BQ + wq * 16 + (lane >> 2);
+  attn::write_output<NT>(o, m, l, og, p.oss, lg, r0, r0 + 8, p.Sq, lane, p.D);
+}
+
+// Shared memory of the wide kernel: Q (64 rows), one K and one V tile, P
+// (64 x 64 bf16, core matrices) and the warpgroups' row maxima or sums.
+constexpr int WIDE_QBS = WIDE_D / 8 * 128;  // bytes of 8 rows of the Q tile
+constexpr int WIDE_PBS = attn::BK / 8 * 128;  // bytes of 8 rows of the P tile
+__host__ __device__ constexpr int wide_smem_bytes() {
+  return attn::BQ / 8 * WIDE_QBS + 2 * attn::BK / 8 * ((WIDE_D / 8 + 1) * 128) +
+         attn::BQ / 8 * WIDE_PBS + WIDE_WG * attn::BQ * 4;
+}
+
+__global__ void __launch_bounds__(128 * WIDE_WG, 1) flash_fwd_wide_bf16(const Params p) {
+  constexpr int KB = 16;                        // keys of S a warpgroup computes per tile
+  constexpr int KS = WIDE_D / 16, NT = WIDE_COLS / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nthreads = blockDim.x;
+  const int wg = warp / 4, wq = warp % 4, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * attn::BQ;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int kbs = attn::kv_block_stride(WIDE_D), tile_bytes = attn::kv_tile_bytes(WIDE_D);
+  const uint32_t q_s = smem_u32(smem_raw);
+  const uint32_t k_s = q_s + attn::BQ / 8 * WIDE_QBS;
+  const uint32_t v_s = k_s + tile_bytes;
+  const uint32_t p_s = v_s + tile_bytes;
+  float* red = reinterpret_cast<float*>(smem_raw + (p_s - q_s) + attn::BQ / 8 * WIDE_PBS);
+
+  for (int i = tid; i < wide_smem_bytes() / 16; i += nthreads)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
+  const __nv_bfloat16* kg = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h * p.ksh;
+  const __nv_bfloat16* vg = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + h * p.vsh;
+  const int ntiles = (p.Sk + attn::BK - 1) / attn::BK;
+  auto load = [&](uint32_t dst, const __nv_bfloat16* src, long long ss, int tile) {
+    attn::load_tile_async<attn::BK>(dst, src, 0, ss, tile * attn::BK, p.Sk, 1, p.D,
+                                    WIDE_D / 8, kbs, nthreads);
+  };
+  // groups: (Q, K0), V0, then K(j+1) and V(j+1) once tile j no longer needs
+  // the buffer; an empty group keeps the count where there is no next tile
+  attn::load_tile_async<attn::BQ>(q_s, qg, 0, p.qss, q0, p.Sq, 1, p.D, WIDE_D / 8, WIDE_QBS,
+                                  nthreads);
+  load(k_s, kg, p.kss, 0);
+  cp_async_commit();
+  load(v_s, vg, p.vss, 0);
+  cp_async_commit();
+
+  const float sl2 = p.scale * 1.4426950408889634f;
+  const int row0 = wq * 16 + g;  // the thread's rows row0 and row0 + 8 of the 64
+  float o[NT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int k0 = tile * attn::BK;
+    cp_async_wait<1>();  // K of this tile has landed
+    fence_proxy_async();
     __syncthreads();
-
-    // S = Q K^T: this warp's 16 rows x BK keys, as BK/8 accumulators of 16x8.
-    float s[BK / 8][4];
+    // S for the warpgroup's 16 keys of the tile, at full depth
+    float s[KB / 8][4];
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_ss_n16(&s[0][0], wgmma_desc(q_s + 2 * ks * 128, 128, WIDE_QBS),
+                   wgmma_desc(k_s + 2 * wg * kbs + 2 * ks * 128, 128, kbs), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      const __nv_bfloat16* qa = q_s + (qr + g) * QS + ks * 16 + 2 * t;
-      const uint32_t a[4] = {lds32(qa), lds32(qa + 8 * QS), lds32(qa + 8),
-                             lds32(qa + 8 * QS + 8)};
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const __nv_bfloat16* kb = k_s + (n * 8 + g) * QS + ks * 16 + 2 * t;
-        mma_bf16(s[n], a, lds32(kb), lds32(kb + 8));
-      }
-    }
-
-    // Online softmax. Thread holds rows g (s[n][0..1]) and g+8 (s[n][2..3]);
-    // the 4 threads of a quad share a row.
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+    for (int n = 0; n < KB / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        const float x = key < p.Sk ? s[n][e] * sl2 : -INFINITY;
-        s[n][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x);
-        else mx1 = fmaxf(mx1, x);
+        wgmma_pin(s[n][e]);
+        if (k0 + wg * KB + n * 8 + 2 * t + (e & 1) >= p.Sk) s[n][e] = -INFINITY;
       }
     }
+    float mx0 = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
+    float mx1 = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float base0 = mn0 == -INFINITY ? 0.f : mn0;
-    const float base1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float al0 = exp2f(m0 - base0), al1 = exp2f(m1 - base1);
-    m0 = mn0;
-    m1 = mn1;
+    if (t == 0) {
+      red[wg * attn::BQ + row0] = mx0;
+      red[wg * attn::BQ + row0 + 8] = mx1;
+    }
+    __syncthreads();  // every warpgroup is done with K and has its maxima out
+    if (tile + 1 < ntiles) load(k_s, kg, p.kss, tile + 1);
+    cp_async_commit();
+    // the row max over the tile's 64 keys, in one order for all warpgroups
+    float t0 = red[row0], t1 = red[row0 + 8];
+#pragma unroll
+    for (int w = 1; w < WIDE_WG; ++w) {
+      t0 = fmaxf(t0, red[w * attn::BQ + row0]);
+      t1 = fmaxf(t1, red[w * attn::BQ + row0 + 8]);
+    }
+    const float mn0 = fmaxf(m[0], t0 * sl2), mn1 = fmaxf(m[1], t1 * sl2);
+    const float c0 = fast_exp2(m[0] - mn0), c1 = fast_exp2(m[1] - mn1);
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - base0);
-      s[n][1] = exp2f(s[n][1] - base0);
-      s[n][2] = exp2f(s[n][2] - base1);
-      s[n][3] = exp2f(s[n][3] - base1);
+    for (int n = 0; n < KB / 8; ++n) {
+      s[n][0] = fast_exp2(fmaf(s[n][0], sl2, -mn0));
+      s[n][1] = fast_exp2(fmaf(s[n][1], sl2, -mn0));
+      s[n][2] = fast_exp2(fmaf(s[n][2], sl2, -mn1));
+      s[n][3] = fast_exp2(fmaf(s[n][3], sl2, -mn1));
       rs0 += s[n][0] + s[n][1];
       rs1 += s[n][2] + s[n][3];
+      // P as bf16 pairs into the tile, core matrices [row / 8][key / 8][row % 8]
+      const uint32_t col = (2 * wg + n) * 128 + t * 4;
+      *reinterpret_cast<uint32_t*>(smem_raw + (p_s - q_s) + row0 / 8 * WIDE_PBS + col +
+                                   (row0 % 8) * 16) = pack_bf16(s[n][0], s[n][1]);
+      *reinterpret_cast<uint32_t*>(smem_raw + (p_s - q_s) + (row0 + 8) / 8 * WIDE_PBS + col +
+                                   (row0 % 8) * 16) = pack_bf16(s[n][2], s[n][3]);
     }
-    l0 = l0 * al0 + rs0;
-    l1 = l1 * al1 + rs1;
+    l[0] = l[0] * c0 + rs0;
+    l[1] = l[1] * c1 + rs1;
+    m[0] = mn0;
+    m[1] = mn1;
 #pragma unroll
-    for (int j = 0; j < DVC / 8; ++j) {
-      o[j][0] *= al0;
-      o[j][1] *= al0;
-      o[j][2] *= al1;
-      o[j][3] *= al1;
+    for (int j = 0; j < NT; ++j) {
+      o[j][0] *= c0;
+      o[j][1] *= c0;
+      o[j][2] *= c1;
+      o[j][3] *= c1;
     }
-
-    // O += P V, with P rounded to bf16 as the TPU kernel rounds it to v's type.
+    cp_async_wait<1>();  // V of this tile has landed
+    fence_proxy_async();  // and P, written by this thread, is visible to wgmma
+    __syncthreads();
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int kk = 0; kk < attn::BK / 16; ++kk) {
 #pragma unroll
-      for (int j = 0; j < DVC / 8; ++j) {
-        const __nv_bfloat16* vb = vt_s + (j * 8 + g) * VS + kk * 16 + 2 * t;
-        mma_bf16(o[j], a, lds32(vb), lds32(vb + 8));
-      }
+      for (int n0 = 0; n0 < WIDE_COLS; n0 += 64)
+        wgmma_ss_n64_tnspb(&o[n0 / 8][0], wgmma_desc(p_s + 2 * kk * 128, 128, WIDE_PBS),
+                           wgmma_desc(v_s + 2 * kk * kbs + (wg * WIDE_COLS + n0) / 8 * 128, kbs,
+                                      128),
+                           1);
     }
-  }
-
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  const int r0 = q0 + qr + g, r1 = r0 + 8;
-  if (p.lse != nullptr && blockIdx.z == 0 && t == 0) {
-    // m is in log2 units: sum_k exp(s_k * scale) = 2^m * l
-    float* lg = p.lse + (long long)blockIdx.y * p.Sq;
-    if (r0 < p.Sq) lg[r0] = m0 * 0.6931471805599453f + logf(l0);
-    if (r1 < p.Sq) lg[r1] = m1 * 0.6931471805599453f + logf(l1);
-  }
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-  for (int j = 0; j < DVC / 8; ++j) {
-    const int col = c0 + j * 8 + 2 * t;  // even; D % 8 == 0 keeps col+1 < D
-    if (col >= p.D) continue;
-    if (r0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + r0 * p.oss + col) =
-          pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
-    if (r1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + r1 * p.oss + col) =
-          pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
+      for (int e = 0; e < 4; ++e) wgmma_pin(o[j][e]);
+    }
+    __syncthreads();  // every warpgroup is done with V, P and the maxima
+    if (tile + 1 < ntiles) load(v_s, vg, p.vss, tile + 1);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
+  // the row sums: each warpgroup's over its keys, then over the warpgroups in order
+  attn::quad_sum(l);
+  if (t == 0) {
+    red[wg * attn::BQ + row0] = l[0];
+    red[wg * attn::BQ + row0 + 8] = l[1];
+  }
+  __syncthreads();
+  float lt[2] = {red[row0], red[row0 + 8]};
+#pragma unroll
+  for (int w = 1; w < WIDE_WG; ++w) {
+    lt[0] += red[w * attn::BQ + row0];
+    lt[1] += red[w * attn::BQ + row0 + 8];
+  }
+  __nv_bfloat16* og =
+      reinterpret_cast<__nv_bfloat16*>(p.o) + b * p.osb + h * p.osh + wg * WIDE_COLS;
+  float* lg = p.lse == nullptr || wg != 0 ? nullptr : p.lse + (long long)blockIdx.y * p.Sq;
+  attn::store_rows<NT>(o, m, lt, og, p.oss, lg, q0 + row0, q0 + row0 + 8, p.Sq, lane,
+                       p.D - wg * WIDE_COLS);
 }
 
-template <int DP, int DVC>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  constexpr int QS = DP + PAD, VS = BK + PAD;
-  constexpr size_t smem = (size_t)(BQ * QS + BK * QS + DVC * VS) * sizeof(__nv_bfloat16);
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_bf16<DP, DVC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The bf16 launch: what the kernels are launched with, and what
+// c2d_flash_plan reports.
+struct Geometry {
+  int d;  // the instance
+  dim3 grid;
+  int threads, smem, rows, sub_tiles, stages, o_regs;
+};
+
+Geometry geometry_bf16(int B, int H, int Sq, int D) {
+  const int d = instance_d(D);
+  if (d == WIDE_D)
+    return {d, dim3((Sq + attn::BQ - 1) / attn::BQ, B * H, 1), 128 * WIDE_WG, wide_smem_bytes(),
+            attn::BQ, 1, 2, WIDE_COLS / 2};
+  return {d, dim3((Sq + ROWS - 1) / ROWS, B * H, 1), 128 * NARROW_WG, attn::smem_bytes(1, d),
+          ROWS, attn::QT, attn::STAGES, d / 2};
+}
+
+template <int D>
+cudaError_t launch_narrow(const Params& p, const Geometry& g, cudaStream_t stream) {
+  static int configured = 0;
+  if (g.smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
     if (e != cudaSuccess) return e;
-    configured = true;
+    configured = g.smem;
   }
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H, (p.D + DVC - 1) / DVC);
-  flash_fwd_bf16<DP, DVC><<<grid, 128, smem, stream>>>(p);
+  flash_fwd_bf16<D><<<g.grid, g.threads, g.smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+cudaError_t launch_wide(const Params& p, const Geometry& g, cudaStream_t stream) {
+  static int configured = 0;
+  if (g.smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_wide_bf16,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+    if (e != cudaSuccess) return e;
+    configured = g.smem;
+  }
+  flash_fwd_wide_bf16<<<g.grid, g.threads, g.smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  const Geometry g = geometry_bf16(p.B, p.H, p.Sq, p.D);
+  switch (g.d) {  // one instance per width: the PV products are d columns exactly
+    case 16: return launch_narrow<16>(p, g, stream);
+    case 32: return launch_narrow<32>(p, g, stream);
+    case 40: return launch_narrow<40>(p, g, stream);
+    case 48: return launch_narrow<48>(p, g, stream);
+    case 64: return launch_narrow<64>(p, g, stream);
+    case 80: return launch_narrow<80>(p, g, stream);
+    case 96: return launch_narrow<96>(p, g, stream);
+    case 128: return launch_narrow<128>(p, g, stream);
+    case 160: return launch_narrow<160>(p, g, stream);
+    default: return launch_wide(p, g, stream);
+  }
 }
 
 // ---------------------------------------------------------------- fp32 path
@@ -359,27 +490,36 @@ extern "C" {
 
 // dtype: 0 = bf16, 1 = fp32. Strides are in elements; the last dim is
 // contiguous. Requires D % 8 == 0, D <= 512, 16-byte aligned pointers and
-// strides that are multiples of 8 elements (the wrapper checks). ``lse`` is
-// null or an fp32 [B*H, Sq] buffer for the row log-sum-exp.
+// strides that are multiples of 8 elements (the wrapper checks); bf16 takes
+// a positive scale (the row max is taken on the raw logits). ``lse`` is null
+// or an fp32 [B*H, Sq] buffer for the row log-sum-exp.
 int c2d_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                             int dtype,
                             int B, int H, int Sq, int Sk, int D, long long qsb, long long qsh,
                             long long qss, long long ksb, long long ksh, long long kss,
                             long long vsb, long long vsh, long long vss, long long osb,
                             long long osh, long long oss, float scale, void* stream) {
+  if (D % 8 || D < 8 || D > WIDE_D || Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
   const Params p{q,   k,   v,   o,   lse, B,   H,   Sq,  Sk,  D,   qsb, qsh, qss,
                  ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, scale};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) return (int)launch_f32(p, st);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  if (D <= 48) return (int)launch_bf16<48, 48>(p, st);
-  if (D <= 64) return (int)launch_bf16<64, 64>(p, st);
-  if (D <= 80) return (int)launch_bf16<80, 80>(p, st);
-  if (D <= 128) return (int)launch_bf16<128, 128>(p, st);
-  if (D <= 160) return (int)launch_bf16<160, 160>(p, st);
-  if (D <= 256) return (int)launch_bf16<256, 128>(p, st);
-  if (D <= 512) return (int)launch_bf16<512, 128>(p, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  return (int)launch_bf16(p, st);
+}
+
+// The geometry c2d_flash_attention_fwd launches the bf16 kernels with on
+// these arguments (no launch; host only): out = {instance head dim, grid.x,
+// grid.y, threads, dynamic shared memory in bytes, query rows per block,
+// query sub-tiles, keys per tile, stages, accumulator registers a thread}.
+int c2d_flash_plan(int B, int H, int Sq, int Sk, int D, int* out) {
+  if (D % 8 || D < 8 || D > WIDE_D || Sq < 1 || Sk < 1 || B < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g = geometry_bf16(B, H, Sq, D);
+  const int vals[10] = {g.d,       (int)g.grid.x, (int)g.grid.y, g.threads, g.smem,
+                        g.rows,    g.sub_tiles,   attn::BK,      g.stages,  g.o_regs};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return 0;
 }
 
 const char* c2d_cuda_error_string(int err) {

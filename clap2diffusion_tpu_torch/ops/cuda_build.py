@@ -37,19 +37,25 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
+_TYPE_NAMES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+
+
 def _short_name(mangled: str) -> str:
-    """``flash_bwd_dq_bf16<64>`` or ``wino_filter<bf16,f32>`` from a mangled
-    kernel name of this repo."""
-    # a repeated type is mangled as a substitution (S1_): only bf16 can repeat so
-    m = re.search(r"wino_filterI((?:13__nv_bfloat16|f|S\d*_)+)E", mangled)
+    """``flash_bwd_dq_bf16<64>``, ``wino_filter<bf16,f32>`` or
+    ``group_norm_fwd<bf16,bf16>`` from a mangled kernel name of this repo."""
+    m = re.search(r"(wino_filter|group_norm_fwd)I((?:13__nv_bfloat16|6__half|f|S\d*_)+)E",
+                  mangled)
     if m is not None:
-        types = re.findall(r"13__nv_bfloat16|f|S\d*_", m.group(1))
-        return "wino_filter<" + ",".join("bf16" if t != "f" else "f32" for t in types) + ">"
-    m = re.search(r"((?:flash_(?:fwd|bwd_dq|bwd_dkdv)|packed_fwd|wino(?:_gemm|_input|_reduce)?)"
-                  r"_(?:bf16|f32)|bwd_delta)", mangled)
+        types: List[str] = []
+        for tok in re.findall(r"13__nv_bfloat16|6__half|f|S\d*_", m.group(2)):
+            # a repeated type is mangled as a substitution (S1_): the one before it
+            types.append(types[-1] if tok.startswith("S") else _TYPE_NAMES[tok])
+        return f"{m.group(1)}<{','.join(types)}>"
+    m = re.search(r"((?:flash_(?:fwd(?:_wide)?|bwd_dq|bwd_dkdv)|packed_fwd"
+                  r"|wino(?:_gemm|_input|_reduce)?)_(?:bf16|f32)|bwd_delta|qreg_probe)", mangled)
     if m is None:
         return mangled
-    args = re.findall(r"Li(\d+)E", mangled)
+    args = re.findall(r"L[ib](\d+)E", mangled)
     if m.group(1) == "bwd_delta":
         args = ["bf16" if "bfloat16" in mangled else "f32"]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
@@ -113,21 +119,23 @@ def library_path(source: str, csrc_dir: Optional[str] = None) -> str:
     return os.path.join(build_dir(), f"lib{stem}_{digest.hexdigest()[:12]}.so")
 
 
-def build(source: str) -> str:
-    """Compile ``csrc/<source>`` unless its library is already built;
-    returns the library's path. What nvcc printed goes to ``BUILD_LOGS``."""
-    out = library_path(source)
+def build(source: str, csrc_dir: Optional[str] = None) -> str:
+    """Compile ``<csrc_dir>/<source>`` (the package's ``csrc/`` by default)
+    unless its library is already built; returns the library's path. What
+    nvcc printed goes to ``BUILD_LOGS``."""
+    csrc_dir = csrc_dir or CSRC_DIR
+    out = library_path(source, csrc_dir)
     if os.path.exists(out):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc_dir, source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed on {source} (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
         )
-    BUILD_LOGS[source] = proc.stdout + proc.stderr
+    BUILD_LOGS[source if csrc_dir == CSRC_DIR else out] = proc.stdout + proc.stderr
     os.replace(tmp, out)
     return out
 
@@ -140,9 +148,12 @@ def build_all(sources: Iterable[str]) -> None:
             fut.result()
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<source>`` once per process."""
+def load(source: str, csrc_dir: Optional[str] = None) -> ctypes.CDLL:
+    """Build (if needed) and load ``<csrc_dir>/<source>`` once per process
+    (another checkout's ``csrc/`` gives another library: a baseline to
+    measure against)."""
+    key = os.path.join(csrc_dir or CSRC_DIR, source)
     with _LOCK:
-        if source not in _LOADED:
-            _LOADED[source] = ctypes.CDLL(build(source))
-        return _LOADED[source]
+        if key not in _LOADED:
+            _LOADED[key] = ctypes.CDLL(build(source, csrc_dir))
+        return _LOADED[key]

@@ -6,7 +6,11 @@ The forward replaces ``clap2diffusion_tpu/ops/flash_attention.py::_fwd_kernel``
 (launched by ``_flash_bwd`` through the custom VJP). Both kernels are CUDA
 C++ for sm_90a in ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``,
 built with nvcc at first use and called through ctypes; their header
-comments give the design and what bounds each.
+comments give the design and what bounds each. The bf16 forward runs on the
+tile pipeline of ``csrc/attention_core.cuh`` with one head a block: 192
+query rows on three warpgroups over a 3-stage K/V ring for d <= 160, and 64
+rows on four warpgroups that split the keys of S and the columns of O for
+the VAE's d = 512 (``flash_launch_plan`` is its launch plan).
 
 ``flash_attention(q, k, v, scale)`` takes [B, H, S, D] tensors, bf16 or
 fp32, any strides with a contiguous last dim, and is differentiable. When
@@ -46,6 +50,7 @@ kernel launches: delta, dK/dV, dQ).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 from typing import Optional, Tuple
@@ -118,6 +123,8 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
             + [ctypes.c_float, ctypes.c_void_p]
         )
+        lib.c2d_flash_plan.restype = ctypes.c_int
+        lib.c2d_flash_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.c2d_cuda_error_string.restype = ctypes.c_char_p
         lib.c2d_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -214,13 +221,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = _lib()
-    with torch.cuda.device(q.device):
+    index = q.device.index
+    # the kernel launches on the current device: switch only where it is another
+    with torch.cuda.device(index) if index != torch.cuda.current_device() \
+            else contextlib.nullcontext():
         err = lib.c2d_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, sq, sk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+            float(scale), torch.cuda.current_stream(index).cuda_stream,
         )
     _raise(lib.c2d_cuda_error_string, err, "flash_attention")
     flash_attention.launches += 1
@@ -370,6 +380,68 @@ def packed_kernel_plan(b: int, h: int, s: int, d: int, pack: int) -> dict:
     return {"pack": kpack, "groups": groups, "grid": (gx, gy), "blocks": gx * gy,
             "threads": threads, "smem_bytes": smem, "query_rows": rows,
             "sub_tiles": sub_tiles, "key_tiles": -(-s // bk), "stages": stages}
+
+
+# the per-head bf16 kernel's instances (csrc/flash_attention.cu: instance_d)
+FLASH_INSTANCES = (16, 32, 40, 48, 64, 80, 96, 128, 160)
+WIDE_D, WIDE_WARPGROUPS = 512, 4
+
+
+def flash_instance(d: int) -> int:
+    """The head dim of the kernel instance that runs ``d``: d itself where
+    the UNet or the VAE has it, else the next instance up (its columns past
+    d are zeros in shared memory and never stored)."""
+    return next((i for i in FLASH_INSTANCES if d <= i), WIDE_D)
+
+
+def flash_launch_plan(b: int, h: int, sq: int, sk: int, d: int) -> dict:
+    """How the bf16 per-head forward is launched on q [b, h, sq, d] and k, v
+    [b, h, sk, d]. Up to d = 160: one block per (192-query tile, batch·head),
+    three warpgroups, one per 64-row sub-tile, each holding its sub-tile's
+    fp32 accumulator (instance d / 2 registers a thread), every 64-key K/V
+    tile loaded once for the three into a ring of 3 stages. Above 160 (the
+    VAE's 512): one block per (64-query tile, batch·head), four warpgroups
+    that each compute S for 16 keys of a tile and O for 128 of the 512
+    columns (64 registers a thread), one K and one V buffer.
+
+    The source owns the geometry and launches by it alone; this is its
+    mirror for planning and records without a card, and ``flash_kernel_plan``
+    is what the built library reports, which ``chip_smoke.py`` holds this
+    against at every shape it runs."""
+    inst = flash_instance(d)
+    if inst == WIDE_D:
+        rows, sub_tiles, warpgroups, stages, o_regs = PACKED_BQ, 1, WIDE_WARPGROUPS, 2, 64
+        qbs = WIDE_D // 8 * 128
+        smem = (PACKED_BQ // 8 * qbs + 2 * (PACKED_BK // 8) * (WIDE_D // 8 + 1) * 128
+                + PACKED_BQ // 8 * (PACKED_BK // 8 * 128) + WIDE_WARPGROUPS * PACKED_BQ * 4)
+    else:
+        rows, sub_tiles, warpgroups, stages = PACKED_QT * PACKED_BQ, PACKED_QT, PACKED_QT, \
+            PACKED_STAGES
+        o_regs = inst // 2
+        smem = _packed_smem_bytes(1, inst)
+    q_tiles = -(-sq // rows)
+    blocks = q_tiles * b * h
+    return {
+        "instance_d": inst, "grid": (q_tiles, b * h), "blocks": blocks,
+        "warpgroups": warpgroups, "threads": 128 * warpgroups, "query_rows": rows,
+        "sub_tiles": sub_tiles, "bk": PACKED_BK, "stages": stages,
+        "key_tiles": -(-sk // PACKED_BK), "smem_bytes": smem, "o_regs": o_regs,
+        "waves": blocks / SM_COUNT,  # blocks per SM over the launch
+    }
+
+
+def flash_kernel_plan(b: int, h: int, sq: int, sk: int, d: int) -> dict:
+    """The bf16 launch geometry as the built library reports it (host code
+    of ``csrc/flash_attention.cu``, no launch), under ``flash_launch_plan``'s
+    keys."""
+    out = (ctypes.c_int * 10)()
+    lib = _lib()
+    _raise(lib.c2d_cuda_error_string,
+           lib.c2d_flash_plan(b, h, sq, sk, d, ctypes.cast(out, ctypes.c_void_p)), "flash_plan")
+    inst, gx, gy, threads, smem, rows, sub_tiles, bk, stages, o_regs = out
+    return {"instance_d": inst, "grid": (gx, gy), "blocks": gx * gy, "threads": threads,
+            "smem_bytes": smem, "query_rows": rows, "sub_tiles": sub_tiles, "bk": bk,
+            "stages": stages, "key_tiles": -(-sk // bk), "o_regs": o_regs}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,4 +1,4 @@
-"""GroupNorm (+SiLU) over channels-last data: the Hopper kernel (Triton)
+"""GroupNorm (+SiLU) over channels-last data: the Hopper kernel (CUDA C++)
 and its plain version.
 
 Replaces ``clap2diffusion_tpu/ops/groupnorm.py::_kernel`` (launched by
@@ -8,34 +8,31 @@ and SiLU, over an NHWC activation. The plain version follows
 per-group combine, the variance clamped at 0, and one pass of ``x*a + b``
 with the affine folded per channel.
 
-What bounds it on an H100: bytes. It does ~10 operations per element it
-moves, far below the ~20 operations per byte at which fp32 arithmetic would
-limit it, so the least time is reading x and writing y once at 3.35 TB/s.
-The TPU kernel ran one grid step per sample over a VMEM-resident slab; on
-the H100 that would leave most of 132 SMs idle (the VAE's [1,512,512,256]
-slab is 128 MB in bf16), so the design spreads every call over the card in
-three launches:
-  1. ``_partial_sums``: one program per (sample, row chunk, 64-channel
-     block) sums x and x^2 per channel in fp32 over its rows;
-  2. ``_group_stats``: one program per (sample, group) combines the chunks
-     and the group's channels into mean and 1/std, and folds the affine
-     into per-channel ``a = scale/std`` and ``b = bias - mean*a``;
-  3. ``_apply``: one read of x, ``y = x*a + b`` (then ``y*sigmoid(y)``),
-     one write of y.
-x is read twice; at the UNet's slabs (at most 5.2 MB) the second read
-mostly hits the 50 MB L2. Groups of C/G = 10 channels (C=320) and the
-concatenated skip widths (960, 1920, 2560) need no special case, because
-the statistics are per channel first and per group second.
+The kernel is ``csrc/group_norm.cu``, built by nvcc at first use and called
+through ctypes: one cooperative launch per call, a persistent grid whose
+blocks each own a run of pixel rows of one sample (all C channels, 16-byte
+loads), with one grid-wide barrier: per-group fp32 partial sums of the
+block's rows, then in every block the mean and 1/std of its sample's groups
+summed over the sample's blocks in one fixed order (two launches give the
+same bits), then ``y = x*a + b`` (then ``y*sigmoid(y)``) from the rows the
+block kept in shared memory. What bounds it is bytes (reading x and writing y once), and at
+the UNet's small slabs the host's cost per call: one ctypes call, the output
+and a workspace from ``torch.empty``, and a cached plan. x is read from device
+memory once where the whole slab fits the grid's shared memory (every UNet
+slab in bf16 at batch 2; the largest, [2,64,64,960], is 15.7 MB); the VAE's
+32-128 MB slabs read the rows past what a block keeps twice.
+``launch_plan`` is the source's geometry as a pure function; the built
+library reports its own (``kernel_plan``), and ``chip_smoke.py`` holds the
+two against each other at every shape it runs.
 
-``group_norm_silu`` and ``group_norm`` take [B, H, W, C] (any layout that
-is contiguous as NHWC). On a CPU tensor they compute the plain version; on
-a CUDA tensor they launch the kernels or raise. Each keeps a launch
-count (``.launches``) and a count of the (shape, dtype, groups, eps) it
-ran on (``.shapes``). The Triton cache goes beside the CUDA build
-(``build/kernels/triton``) unless ``TRITON_CACHE_DIR`` is set.
+``group_norm_silu`` and ``group_norm`` take [B, H, W, C] (contiguous as
+NHWC, C a multiple of 8 up to 4096) in bf16, fp16 or fp32. On a CPU tensor
+they compute the plain version; on a CUDA tensor they launch the kernel or
+raise. Each keeps a launch count (``.launches``) and a count of the (shape,
+dtype, groups, eps) it ran on (``.shapes``).
 
 Gradients: when an input needs one, the call goes through
-``GroupNormFunction``, whose forward is the same kernels (the plain version
+``GroupNormFunction``, whose forward is the same kernel (the plain version
 on the CPU) and saves (x, scale, bias). Its backward recomputes
 ``plain_group_norm`` under autograd and returns that vector-Jacobian
 product. This is deliberate and not a fallback: the JAX package's custom
@@ -46,16 +43,22 @@ have no backward kernel, so there is none to port.
 from __future__ import annotations
 
 import collections
-import os
+import contextlib
+import ctypes
+import functools
 
 import torch
 
 from clap2diffusion_tpu_torch.ops import cuda_build
 
-_BLOCK_R = 64
-_BLOCK_C = 64
-_TARGET_PROGRAMS = 1024
-_KERNELS = None
+SOURCE = "group_norm.cu"
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+# csrc/group_norm.cu's constants
+THREADS = 512
+MAX_SMEM = 232_448       # bytes of shared memory one block may use
+MIN_BLOCK_BYTES = 32_768  # of x a block owns at least, where the slab allows
+MAX_C = 4096
+SM_COUNT = 132            # an H100's streaming multiprocessors
 
 
 def plain_group_norm(x, scale, bias, groups: int, eps: float, silu: bool) -> torch.Tensor:
@@ -81,135 +84,128 @@ def plain_group_norm(x, scale, bias, groups: int, eps: float, silu: bool) -> tor
     return y.to(x.dtype)
 
 
-def _kernels():
-    """Define the Triton kernels on first use (this keeps the module
-    importable where triton is not installed). ``triton`` and ``tl`` become
-    module globals, where Triton's compiler looks names up."""
-    global _KERNELS, triton, tl
-    if _KERNELS is not None:
-        return _KERNELS
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(cuda_build.build_dir(), "triton"))
-    import triton
-    import triton.language as tl
+@functools.lru_cache(maxsize=None)
+def launch_plan(shape, dtype, groups: int, capacity: int = SM_COUNT) -> dict:
+    """How the kernel is launched on an NHWC ``shape`` of ``dtype`` with
+    ``groups`` groups, when ``capacity`` blocks of 512 threads at the largest
+    shared memory can be resident at once (one per SM on an H100): blocks
+    per sample enough that each owns 32 KB of x, at most ``capacity // B``,
+    at most one a row; rows per block evened out over them; each thread's
+    items are (16-byte column, row lane) pairs, ``lanes`` row lanes; a block
+    keeps as many of its rows in shared memory as fit beside the per-lane
+    sums, and ``resident`` says whether that is all of them.
 
-    @triton.jit
-    def _partial_sums(x_ptr, part_ptr, HW, C, rows_per_chunk, n_chunks,
-                      BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        b = pid // n_chunks
-        chunk = pid % n_chunks
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        r_start = chunk * rows_per_chunk
-        r_end = tl.minimum(r_start + rows_per_chunk, HW)
-        acc1 = tl.zeros((BLOCK_R, BLOCK_C), dtype=tl.float32)
-        acc2 = tl.zeros((BLOCK_R, BLOCK_C), dtype=tl.float32)
-        base = x_ptr + b.to(tl.int64) * HW * C
-        for r0 in range(r_start, r_end, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            m = (rows < r_end)[:, None] & cmask[None, :]
-            x = tl.load(base + rows.to(tl.int64)[:, None] * C + cols[None, :],
-                        mask=m, other=0.0).to(tl.float32)
-            acc1 += x
-            acc2 += x * x
-        out = part_ptr + (pid * 2) * C
-        tl.store(out + cols, tl.sum(acc1, axis=0), mask=cmask)
-        tl.store(out + C + cols, tl.sum(acc2, axis=0), mask=cmask)
+    csrc/group_norm.cu owns the geometry and launches by it alone; this is
+    its mirror for planning, allocation and records without a card, cached
+    (one dict per key: do not change it), and ``kernel_plan`` is what the
+    built library reports."""
+    b, h, w, c = shape
+    elem = torch.empty((), dtype=dtype).element_size()
+    if c % 8 or not 8 <= c <= MAX_C or c % groups or not 1 <= b <= capacity:
+        raise ValueError(f"group_norm: no plan for {tuple(shape)} in {groups} groups "
+                         f"(C a multiple of 8 up to {MAX_C}, B <= {capacity})")
+    hw = h * w
+    row_bytes = c * elem
+    owning_32kb = -(-hw * row_bytes * b // MIN_BLOCK_BYTES)  # blocks, rounded up
+    bps = max(1, min(capacity // b, -(-owning_32kb // b), hw))
+    rpb = -(-hw // bps)
+    bps = -(-hw // rpb)
+    vcols = row_bytes // 16
+    lanes = 1 if vcols >= THREADS else THREADS // vcols
+    fixed = lanes * 2 * c * 4
+    keep = max(0, min(rpb, (MAX_SMEM - fixed) // row_bytes))
+    grid = b * bps
+    return {
+        "grid": grid, "blocks_per_sample": bps, "rows_per_block": rpb, "keep_rows": keep,
+        "lanes": lanes, "smem_bytes": fixed + keep * row_bytes, "resident": keep == rpb,
+        "workspace_floats": grid * 2 * groups, "threads": THREADS,
+        "capacity": capacity, "vec": 16 // elem, "vec_cols": vcols,
+        "items_per_thread": -(-vcols * lanes // THREADS),
+        # x is read once, and the rows past what each block keeps once more
+        "x_reads": 2 - b * sum(min(keep, hw - k * rpb) for k in range(bps)) / (b * hw),
+    }
 
-    @triton.jit
-    def _group_stats(part_ptr, w_ptr, bias_ptr, a_ptr, shift_ptr, n_chunks, C, CG,
-                     G, count, eps, BLOCK_K: tl.constexpr, BLOCK_CG: tl.constexpr):
-        pid = tl.program_id(0)
-        b = pid // G
-        g = pid % G
-        cols = g * CG + tl.arange(0, BLOCK_CG)
-        cmask = tl.arange(0, BLOCK_CG) < CG
-        acc1 = tl.zeros((BLOCK_K, BLOCK_CG), dtype=tl.float32)
-        acc2 = tl.zeros((BLOCK_K, BLOCK_CG), dtype=tl.float32)
-        for k0 in range(0, n_chunks, BLOCK_K):
-            ks = k0 + tl.arange(0, BLOCK_K)
-            m = (ks < n_chunks)[:, None] & cmask[None, :]
-            rows = (b * n_chunks + ks) * 2
-            acc1 += tl.load(part_ptr + rows[:, None] * C + cols[None, :], mask=m, other=0.0)
-            acc2 += tl.load(part_ptr + (rows + 1)[:, None] * C + cols[None, :], mask=m,
-                            other=0.0)
-        mean = tl.sum(tl.sum(acc1, axis=1), axis=0) / count
-        var = tl.maximum(tl.sum(tl.sum(acc2, axis=1), axis=0) / count - mean * mean, 0.0)
-        inv = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        bb = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        a = inv * w
-        tl.store(a_ptr + b * C + cols, a, mask=cmask)
-        tl.store(shift_ptr + b * C + cols, bb - mean * a, mask=cmask)
 
-    @triton.jit
-    def _apply(x_ptr, y_ptr, a_ptr, shift_ptr, HW, C, n_rblocks, SILU: tl.constexpr,
-               BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        b = pid // n_rblocks
-        rows = (pid % n_rblocks) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        m = (rows < HW)[:, None] & cmask[None, :]
-        offs = b.to(tl.int64) * HW * C + rows.to(tl.int64)[:, None] * C + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=m, other=0.0)
-        a = tl.load(a_ptr + b * C + cols, mask=cmask, other=0.0)
-        s = tl.load(shift_ptr + b * C + cols, mask=cmask, other=0.0)
-        y = x.to(tl.float32) * a[None, :] + s[None, :]
-        if SILU:
-            y = y * (1.0 / (1.0 + tl.exp(-y)))
-        tl.store(y_ptr + offs, y.to(x.dtype), mask=m)
-
-    _KERNELS = (triton, _partial_sums, _group_stats, _apply)
-    return _KERNELS
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load(SOURCE)
+    fn = lib.c2d_group_norm_fwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.c2d_group_norm_plan.restype = ctypes.c_int
+        lib.c2d_group_norm_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.c2d_cuda_error_string_gn.restype = ctypes.c_char_p
+        lib.c2d_cuda_error_string_gn.argtypes = [ctypes.c_int]
+    return lib
 
 
 def build() -> None:
-    """Import triton and define the kernels (they compile at first launch)."""
-    _kernels()
+    """Load the kernel library (no launch), building it if it is not built."""
+    _lib()
+
+
+def _raise(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel failed: {lib.c2d_cuda_error_string_gn(err).decode()}")
+
+
+def kernel_plan(shape, dtype, groups: int, capacity: int = 0) -> dict:
+    """The launch geometry as the built library reports it (host code of
+    ``csrc/group_norm.cu``, no launch), under ``launch_plan``'s keys;
+    ``capacity`` < 1 asks for the device's."""
+    b, h, w, c = shape
+    out = (ctypes.c_longlong * 10)()
+    lib = _lib()
+    _raise(lib, lib.c2d_group_norm_plan(b, h * w, c, _DTYPE_CODE[dtype], groups, capacity,
+                                        ctypes.cast(out, ctypes.c_void_p)), "group_norm_plan")
+    grid, bps, rpb, keep, lanes, smem, resident, ws, threads, cap = out
+    return {"grid": grid, "blocks_per_sample": bps, "rows_per_block": rpb, "keep_rows": keep,
+            "lanes": lanes, "smem_bytes": smem, "resident": bool(resident),
+            "workspace_floats": ws, "threads": threads, "capacity": cap}
+
+
+@functools.lru_cache(maxsize=None)
+def device_capacity(index: int) -> int:
+    """Resident blocks of the kernel at its largest shared memory on CUDA
+    device ``index`` (the library's occupancy query)."""
+    with torch.cuda.device(index):
+        return kernel_plan((1, 1, 1, 8), torch.float32, 1)["capacity"]
 
 
 def _launch(x, scale, bias, groups: int, eps: float, silu: bool) -> torch.Tensor:
-    triton, partial_sums, group_stats, apply = _kernels()
-    if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise ValueError(f"group_norm: NHWC float input expected, got "
+    if x.dim() != 4 or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"group_norm: NHWC bf16/fp16/fp32 input expected, got "
                          f"{tuple(x.shape)} {x.dtype}")
     b, h, w, c = x.shape
-    if c % groups or scale.shape != (c,) or bias.shape != (c,):
-        raise ValueError(f"group_norm: C={c} must split into {groups} groups and "
-                         f"match scale/bias {tuple(scale.shape)}/{tuple(bias.shape)}")
+    if c % groups or scale.shape != (c,) or bias.shape != (c,) or scale.dtype not in _DTYPE_CODE \
+            or bias.dtype != scale.dtype:
+        raise ValueError(f"group_norm: C={c} must split into {groups} groups and match "
+                         f"scale/bias {tuple(scale.shape)}/{tuple(bias.shape)} of one float type")
     if scale.device != x.device or bias.device != x.device:
         raise ValueError("group_norm: scale and bias must be on the input's device")
     x = x.contiguous()
-    hw = h * w
-    n_cblocks = triton.cdiv(c, _BLOCK_C)
-    n_chunks = max(1, min(triton.cdiv(hw, _BLOCK_R),
-                          _TARGET_PROGRAMS // max(1, b * n_cblocks)))
-    rows_per_chunk = triton.cdiv(triton.cdiv(hw, n_chunks), _BLOCK_R) * _BLOCK_R
-    n_chunks = triton.cdiv(hw, rows_per_chunk)
-    cg = c // groups
-    f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty((b, n_chunks, 2, c), **f32)
-    a = torch.empty((b, c), **f32)
-    shift = torch.empty((b, c), **f32)
+    if x.data_ptr() % 16:
+        x = x.clone()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    index = x.device.index
+    plan = launch_plan(tuple(x.shape), x.dtype, groups, device_capacity(index))
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        partial_sums[(b * n_chunks, n_cblocks)](
-            x, part, hw, c, rows_per_chunk, n_chunks, BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C)
-        group_stats[(b * groups,)](
-            part, scale.contiguous(), bias.contiguous(), a, shift, n_chunks, c, cg,
-            groups, float(hw * cg), float(eps),
-            BLOCK_K=min(64, triton.next_power_of_2(n_chunks)),
-            BLOCK_CG=triton.next_power_of_2(cg))
-        n_rblocks = triton.cdiv(hw, _BLOCK_R)
-        apply[(b * n_rblocks, n_cblocks)](
-            x, y, a, shift, hw, c, n_rblocks, SILU=silu, BLOCK_R=_BLOCK_R,
-            BLOCK_C=_BLOCK_C)
+    ws = torch.empty(plan["workspace_floats"], dtype=torch.float32, device=x.device)
+    lib = _lib()
+    # the kernel launches on the current device: switch only where it is another
+    with torch.cuda.device(index) if index != torch.cuda.current_device() \
+            else contextlib.nullcontext():
+        err = lib.c2d_group_norm_fwd(
+            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), ws.data_ptr(),
+            plan["workspace_floats"], _DTYPE_CODE[x.dtype], _DTYPE_CODE[scale.dtype], b, h * w, c,
+            groups, float(eps), int(silu), torch.cuda.current_stream(index).cuda_stream)
+    _raise(lib, err, "group_norm")
     return y
 
 
 def _forward(x, scale, bias, groups: int, eps: float, silu: bool) -> torch.Tensor:
-    """The plain version on a CPU tensor, the kernels on a CUDA tensor."""
+    """The plain version on a CPU tensor, the kernel on a CUDA tensor."""
     if x.device.type == "cpu":
         return plain_group_norm(x, scale, bias, groups, eps, silu)
     if not x.is_cuda:
@@ -222,7 +218,7 @@ def _forward(x, scale, bias, groups: int, eps: float, silu: bool) -> torch.Tenso
 
 
 class GroupNormFunction(torch.autograd.Function):
-    """GroupNorm(+SiLU) with the kernels forward and the JAX package's
+    """GroupNorm(+SiLU) with the kernel forward and the JAX package's
     backward: autograd of ``plain_group_norm`` on the saved inputs."""
 
     @staticmethod
@@ -256,7 +252,7 @@ def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-5) -> torc
 
 
 def group_norm(x, scale, bias, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over NHWC (the same kernels with SiLU off); differentiable."""
+    """GroupNorm over NHWC (the same kernel with SiLU off); differentiable."""
     return _apply(x, scale, bias, groups, eps, silu=False)
 
 

@@ -1,6 +1,7 @@
-"""Two measurements behind the opt-in kernels' launch plans, on the card.
+"""Measurements behind the opt-in kernels' launch plans, on the card, and
+the probe of wgmma's register operand.
 
-    python -m clap2diffusion_tpu_torch.tools.probe_opt_in_kernels
+    python -m clap2diffusion_tpu_torch.tools.probe_opt_in_kernels [--parts sweep,route,qreg]
 
   1. The Winograd kernel's device time against the split of its Cin loop, at
      five shapes of the UNet's census (bf16, batch 2): ``launch_plan``'s cost
@@ -13,11 +14,19 @@
   2. One full-width UNet forward (CFG batch 2, bf16, random weights from
      seed 0) with ``C2D_PACKED_FLASH=1`` and without it, alternating, on the
      host clock to a synchronize: whether the packed route moves a forward.
+  3. ``csrc/wgmma_probe.cu``: S = Q K^T over 8 key tiles with Q's wgmma A
+     fragments held in registers across the loop (pinned after each wait,
+     or not), at 3, 4 and 5 k16 steps (d = 48, 64, 80) and with 0, 160 and
+     224 more fp32 registers a thread live across the loop, each against Q
+     read from shared memory (bits), with the registers and spills ptxas
+     reported for each instance.
 Prints one JSON line per result, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -29,6 +38,7 @@ import torch
 
 from clap2diffusion_tpu_torch.core import config as C
 from clap2diffusion_tpu_torch.diffusion.pipeline import AudioToImagePipeline
+from clap2diffusion_tpu_torch.ops import cuda_build
 from clap2diffusion_tpu_torch.ops import winograd_pallas as wp
 
 SWEEP = [((2, 8, 8, 1280), 1280, (3, 4, 6, 7, 10, 12, 13, 16)),
@@ -129,14 +139,57 @@ def unet_route(gen, rounds: int = 3, per_round: int = 6) -> None:
                       "max_ms": {k: max(v) for k, v in ms.items()}}), flush=True)
 
 
+def qreg(gen, ntiles: int = 8) -> None:
+    lib = cuda_build.load("wgmma_probe.cu")
+    lib.c2d_qreg_probe.restype = ctypes.c_int
+    lib.c2d_qreg_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                                               ctypes.c_void_p]
+    regs = {k["kernel"]: k for k in cuda_build.ptxas_summary(
+        cuda_build.BUILD_LOGS.get("wgmma_probe.cu", ""))}
+    for ks in (3, 4, 5):
+        q = torch.randn(64, 16 * ks, device="cuda", generator=gen).bfloat16()
+        k = torch.randn(ntiles, 64, 16 * ks, device="cuda", generator=gen).bfloat16()
+        for extra in (0, 160, 224):
+            outs = {}
+            for mode in (0, 1, 2):
+                out = torch.full((ntiles, 128, 32), float("nan"), device="cuda")
+                sink = torch.empty(128, device="cuda")
+                err = lib.c2d_qreg_probe(mode, ks, extra, q.data_ptr(), k.data_ptr(),
+                                         out.data_ptr(), sink.data_ptr(), ntiles,
+                                         torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                outs[mode] = out if err == 0 else None
+            ref = outs[0]
+            row = {"probe": "wgmma_register_a", "k16_steps": ks, "d": 16 * ks,
+                   "extra_live_registers": extra}
+            for mode, name in ((1, "qreg_pinned"), (2, "qreg_unpinned")):
+                got = outs[mode]
+                row[name] = None if got is None or ref is None else {
+                    "same_bits": torch.equal(got, ref),
+                    "tiles_off": [j for j in range(ntiles) if not torch.equal(got[j], ref[j])],
+                    "max_abs_err": (got - ref).abs().max().item()}
+                meta = regs.get(f"qreg_probe<{ks},{extra},1,{int(mode == 1)}>", {})
+                row[name + "_ptxas"] = meta
+            row["reference_ptxas"] = regs.get(f"qreg_probe<{ks},{extra},0,0>", {})
+            print(json.dumps(row), flush=True)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parts", default="sweep,route,qreg",
+                        help="comma-separated: sweep, route, qreg")
+    parts = parser.parse_args().parts.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("probe_opt_in_kernels: CUDA is not available; this tool needs one GPU")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    split_sweep(gen)
-    unet_route(gen)
+    if "qreg" in parts:
+        qreg(gen)
+    if "sweep" in parts:
+        split_sweep(gen)
+    if "route" in parts:
+        unet_route(gen)
     return 0
 
 

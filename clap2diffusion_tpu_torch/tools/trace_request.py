@@ -32,7 +32,7 @@ from clap2diffusion_tpu_torch.ops.cuda_build import build_dir
 
 CATEGORIES = (
     ("flash_attention", ("flash_fwd",)),
-    ("groupnorm_triton", ("_partial_sums", "_group_stats", "_apply")),
+    ("groupnorm", ("group_norm_fwd",)),
     ("convolution", ("fprop", "conv", "implicit", "nhwc")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
     ("layer_norm", ("layer_norm",)),
@@ -76,7 +76,7 @@ def main() -> None:
     wav = (rng.normal(size=cfg.clap.frontend.num_samples) * 0.1).astype(np.float32)
     text, uncond = tok("rain on a tin roof"), tok("")
     kw = dict(waveform=wav, text_ids=text, uncond_ids=uncond, num_steps=args.steps, seed=0)
-    pipe.generate(**kw)  # warm-up: Triton compiles, cuDNN plans, allocator
+    pipe.generate(**kw)  # warm-up: kernel builds, cuDNN plans, allocator
 
     # 1. stages, each synchronised
     stages = {}

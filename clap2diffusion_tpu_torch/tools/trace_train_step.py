@@ -11,7 +11,7 @@ four warm-up micro-steps through ``train.stages.train_step``, then:
      optimizer step with the EMA update, and the whole micro-step;
   2. profiles one micro-step with ``torch.profiler`` and sums the device
      events of its chrome trace by category (the flash backward, the flash
-     forward, GroupNorm Triton, convolution, matmul, ...); the device's
+     forward, GroupNorm, convolution, matmul, ...); the device's
      idle share is 1 - device time / the unprofiled micro-step's wall time.
 Prints one JSON line per result, with the card's name and power limit.
 With ``--out`` the chrome trace is kept there (gzip).
@@ -65,7 +65,7 @@ def main() -> None:
              "latent": torch.randn(b, lat, lat, 4, device="cuda", generator=gen),
              "text_ctx": torch.randn(b, 77, cfg.diffusion.unet.cross_attention_dim,
                                      device="cuda", generator=gen)}
-    for _ in range(4):  # warm-up: Triton compiles, cuDNN plans, allocator
+    for _ in range(4):  # warm-up: kernel builds, cuDNN plans, allocator
         S.train_step(st, state, batch, gen)
 
     # 1. parts of one micro-step, each synchronised

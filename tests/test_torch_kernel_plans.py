@@ -1,9 +1,10 @@
 """What surrounds the port's redesigned Hopper kernels and runs without a
 card: the Winograd kernel's launch plan and ``eligible``, the order of its
-filter transform, the packed attention kernel's launch plan, and the build
-helper's header-aware hash and kernel names. The kernels themselves are CUDA
-and run only on the card, where ``chip_smoke.py`` (phases 2c and 2d) holds
-them against their plain versions.
+filter transform, the packed and per-head attention kernels' launch plans,
+the GroupNorm kernel's plan at the census shapes, and the build helper's
+header-aware hash and kernel names. The kernels themselves are CUDA and run
+only on the card, where ``chip_smoke.py`` (phases 2, 2c and 2d) holds them
+and these plans against their plain versions and the built libraries.
 """
 
 import os
@@ -14,6 +15,7 @@ import torch
 
 from clap2diffusion_tpu_torch.ops import cuda_build
 from clap2diffusion_tpu_torch.ops import flash_attention as pfa
+from clap2diffusion_tpu_torch.ops import groupnorm as pgn
 from clap2diffusion_tpu_torch.ops import winograd as pw
 from clap2diffusion_tpu_torch.ops import winograd_pallas as pwp
 
@@ -216,7 +218,9 @@ def test_the_ports_sources_name_their_headers():
     assert cuda_build.source_files("packed_flash_attention.cu") == [
         "packed_flash_attention.cu", "attention_core.cuh", "ptx.cuh", "wgmma.cuh"]
     assert cuda_build.source_files("winograd.cu") == ["winograd.cu", "ptx.cuh"]
-    assert cuda_build.source_files("flash_attention.cu") == ["flash_attention.cu"]
+    assert cuda_build.source_files("flash_attention.cu") == [
+        "flash_attention.cu", "attention_core.cuh", "ptx.cuh", "wgmma.cuh"]
+    assert cuda_build.source_files("group_norm.cu") == ["group_norm.cu", "ptx.cuh"]
 
 
 PTXAS_LOG = """\
@@ -258,3 +262,101 @@ def test_ptxas_summary_names_the_redesigned_kernels():
                       "spill_loads": 0}
     assert got[1]["spill_stores"] == 16 and got[1]["spill_loads"] == 24
     assert got[7]["registers"] == 126 and got[8]["registers"] == 64
+
+
+# GroupNorm(+SiLU) at the serving and training census: the SD v1.5 UNet's
+# (H = W, C) at 32 groups (C/G from 10 to 80) and the VAE decoder's
+# (C/G from 4 to 16), NHWC.
+UNET_GN = [(64, 320), (64, 640), (64, 960), (32, 320), (32, 640), (32, 960), (32, 1280),
+           (32, 1920), (16, 640), (16, 1280), (16, 1920), (16, 2560), (8, 1280), (8, 2560)]
+VAE_GN = [(64, 512), (128, 512), (256, 512), (256, 256), (512, 256), (512, 128)]
+GN_CENSUS = ([((b, hw, hw, c), dt) for b in (2, 4) for hw, c in UNET_GN
+              for dt in (torch.bfloat16, torch.float32)]
+             + [((1, hw, hw, c), dt) for hw, c in VAE_GN for dt in (torch.bfloat16, torch.float32)])
+
+
+@pytest.mark.parametrize("shape,dtype", GN_CENSUS)
+@pytest.mark.parametrize("capacity", [132, 264])
+def test_group_norm_plan_covers_every_row_and_channel_once(shape, dtype, capacity):
+    b, h, w, c = shape
+    plan = pgn.launch_plan(shape, dtype, 32, capacity)
+    hw, bps, rpb = h * w, plan["blocks_per_sample"], plan["rows_per_block"]
+    assert plan["smem_bytes"] <= pgn.MAX_SMEM == 232_448
+    assert plan["grid"] == b * bps <= capacity
+    # each sample's rows in exactly one block, no block empty
+    rows = [r for k in range(bps) for r in range(k * rpb, min((k + 1) * rpb, hw))]
+    assert rows == list(range(hw)) and (bps - 1) * rpb < hw
+    # every channel in one 16-byte column, every (column, row lane) on a thread
+    assert plan["vec_cols"] * plan["vec"] == c and plan["vec"] * torch.empty(
+        (), dtype=dtype).element_size() == 16
+    lanes = plan["lanes"]
+    assert lanes == max(1, pgn.THREADS // plan["vec_cols"])
+    assert plan["vec_cols"] * lanes <= pgn.THREADS * plan["items_per_thread"] <= 2 * pgn.THREADS
+    # the block's kept rows and its per-lane sums fit its shared memory
+    assert plan["keep_rows"] <= rpb
+    assert plan["smem_bytes"] == lanes * 2 * c * 4 + plan["keep_rows"] * c * (16 // plan["vec"])
+    assert plan["resident"] == (plan["keep_rows"] == rpb)
+    assert plan["workspace_floats"] == plan["grid"] * 2 * 32  # (sum, sum of squares) a group
+    # x from device memory once, and at most once more where it does not fit
+    assert 1.0 <= plan["x_reads"] <= 2.0 and (plan["x_reads"] == 1.0) == plan["resident"]
+
+
+@pytest.mark.parametrize("hw,c", UNET_GN)
+def test_group_norm_plan_keeps_every_serving_unet_slab_resident(hw, c):
+    """The UNet at CFG batch 2 in bf16: x is read from device memory once."""
+    plan = pgn.launch_plan((2, hw, hw, c), torch.bfloat16, 32)
+    assert plan["resident"] and plan["x_reads"] == 1.0 and plan["grid"] <= 132
+
+
+def test_group_norm_plan_is_a_pure_function_and_refuses_what_the_kernel_does_not_take():
+    a = pgn.launch_plan((2, 64, 64, 960), torch.bfloat16, 32)
+    assert a is pgn.launch_plan((2, 64, 64, 960), torch.bfloat16, 32)  # cached
+    assert a["grid"] == 132 and a["smem_bytes"] == 151_680 and a["lanes"] == 4
+    small = pgn.launch_plan((2, 8, 8, 1280), torch.bfloat16, 32)
+    assert small["grid"] == 10 and small["rows_per_block"] == 13  # 32 KB of x a block
+    vae = pgn.launch_plan((1, 512, 512, 256), torch.bfloat16, 32)
+    assert not vae["resident"] and vae["grid"] == 132 and vae["x_reads"] < 1.85
+    for shape, groups in (((2, 8, 8, 12), 4), ((2, 8, 8, 8200), 8), ((2, 8, 8, 96), 7),
+                          ((200, 8, 8, 64), 32)):
+        with pytest.raises(ValueError):
+            pgn.launch_plan(shape, torch.bfloat16, groups)
+
+
+FLASH_DS = list(range(8, 161, 8)) + [512]
+
+
+@pytest.mark.parametrize("d", FLASH_DS)
+@pytest.mark.parametrize("sq,sk", [(4096, 4096), (1000, 777), (130, 65)])
+def test_flash_launch_plan(d, sq, sk):
+    b, h = 2, 3
+    plan = pfa.flash_launch_plan(b, h, sq, sk, d)
+    inst = plan["instance_d"]
+    assert inst >= d and inst % 8 == 0
+    assert inst == min(i for i in (*pfa.FLASH_INSTANCES, 512) if i >= d)
+    assert plan["o_regs"] <= 128 and plan["smem_bytes"] <= pfa.MAX_SMEM
+    rows = plan["query_rows"]
+    assert plan["grid"] == (-(-sq // rows), b * h) and plan["blocks"] == plan["grid"][0] * b * h
+    assert plan["key_tiles"] == -(-sk // 64) and plan["bk"] == 64
+    assert plan["threads"] == 128 * plan["warpgroups"]
+    if d <= 160:
+        # three 64-row sub-tiles, one warpgroup each, on one 3-stage K/V ring
+        assert rows == 192 and plan["sub_tiles"] == 3 == plan["warpgroups"]
+        assert plan["o_regs"] == inst // 2 and plan["stages"] == 3
+        q_tile = 192 * (-(-inst // 16) * 16) * 2
+        kv_tile = 64 * (inst * 2 + 16)
+        assert plan["smem_bytes"] == q_tile + 3 * 2 * kv_tile
+    else:
+        # 64 rows, four warpgroups over the keys of S and the columns of O
+        assert rows == 64 and plan["warpgroups"] == 4 and plan["o_regs"] == 64
+        assert plan["smem_bytes"] == 64 * 512 * 2 + 2 * 64 * (512 * 2 + 16) + 64 * 64 * 2 + 4 * 64 * 4
+
+
+def test_flash_launch_plan_at_the_serving_shapes():
+    assert pfa.flash_launch_plan(2, 8, 4096, 4096, 40)["blocks"] == 22 * 16
+    assert pfa.flash_launch_plan(2, 8, 4096, 4096, 40)["o_regs"] == 20
+    assert pfa.flash_launch_plan(2, 8, 1024, 1024, 80)["o_regs"] == 40
+    assert pfa.flash_launch_plan(2, 8, 256, 256, 160)["o_regs"] == 80
+    vae = pfa.flash_launch_plan(1, 1, 4096, 4096, 512)
+    assert vae["blocks"] == 64 and vae["smem_bytes"] == 207_872 and vae["stages"] == 2
+    assert [pfa.flash_instance(d) for d in (8, 24, 40, 56, 72, 88, 136, 168)] == [
+        16, 32, 40, 64, 80, 96, 160, 512]
