@@ -22,10 +22,16 @@ Phases (each raises on failure, so the exit code is non-zero):
   2b. A census stage-2 micro-step (batch 4) and stage-3 micro-step (batch 2)
      record the training path's shapes; the flash-attention backward kernel
      is held against its plain version at each (bf16 and fp32) and at ragged
-     shapes (Sq != Sk, S off the tile, d = 8 and 16), run twice for
-     bit-identical results, and timed beside its bound, the plain version
-     and autograd through ``scaled_dot_product_attention``. A forward that
-     writes the log-sum-exp must give the same bits as one that does not.
+     shapes (Sq != Sk, S off the tile, d = 8, 16, 64 and 120, the last two on
+     the next instance up), run twice for bit-identical results, its Python
+     launch plan held against the built library's, and timed beside its
+     bound and its ex2 floor (both computed, and the floor logged per shape
+     and per micro-step, not in the kernels line), the plain version and
+     autograd through
+     ``scaled_dot_product_attention``: host-paced and as device time (a CUDA
+     graph of the kernel, and of ``torch.autograd.grad`` on a captured SDPA
+     output). A forward that writes the log-sum-exp must give the same bits
+     as one that does not.
      The GroupNorm Functions' gradients are held against autograd of
      ``plain_group_norm``, and the GroupNorm kernels against their plain
      version at the training shapes.
@@ -82,7 +88,7 @@ Phases (each raises on failure, so the exit code is non-zero):
 Timing: CUDA events around repeated launches after a warm-up (inputs stay
 in L2 where they fit, as they do on the path, where the producer just wrote
 them): ``*_ms`` back to back from Python, so at small shapes the host's cost
-per call; ``*device_ms`` (phase 2) from a CUDA graph of 20 calls
+per call; ``*device_ms`` (phases 2 and 2b) from a CUDA graph of 20 calls
 (``utils/timing.py``), the device's. Bounds use the H100 SXM data-sheet
 rates: 989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32, 3.35 TB/s HBM3. The line
 before the last two is the ``kernels`` JSON: the forward, packed-forward and
@@ -118,7 +124,7 @@ from clap2diffusion_tpu_torch.ops import winograd as wino
 from clap2diffusion_tpu_torch.ops import winograd_pallas as wp
 from clap2diffusion_tpu_torch.train import stages as S
 from clap2diffusion_tpu_torch.train import trainer as T
-from clap2diffusion_tpu_torch.utils.timing import graph_ms
+from clap2diffusion_tpu_torch.utils.timing import graph_ms, sdpa_backward_device_ms
 
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -323,12 +329,16 @@ def lse_case(q, k, v, scale, name):
     return o, lse, err.max().item()
 
 
-def bwd_case(qs, ks, dtype, gen, timed=True):
+def bwd_case(qs, ks, dtype, gen, timed=True, ex2_per_s=None):
     """The backward kernel against its plain version at one shape."""
     q, k, v, do = (torch.randn(sh, device="cuda", generator=gen).to(dtype)
                    for sh in (qs, ks, ks, qs))
     scale = qs[-1] ** -0.5
     name = f"flash_bwd {list(qs)} k{list(ks)} {str(dtype)[6:]}"
+    plan = fa.flash_bwd_launch_plan(*qs[:3], ks[2], qs[3])
+    built = fa.flash_bwd_kernel_plan(*qs[:3], ks[2], qs[3])
+    if any(plan[key] != val for key, val in built.items()):
+        raise AssertionError(f"{name}: flash_bwd_launch_plan {plan} is not the library's {built}")
     o, lse, lse_err = lse_case(q, k, v, scale, name)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
@@ -358,12 +368,19 @@ def bwd_case(qs, ks, dtype, gen, timed=True):
         bms, by = bound_ms(10 * b * h * sq * sk * d, nbytes, dtype)
         qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        kernel = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
         row.update({
-            "kernel_ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, scale)),
+            "kernel_ms": time_ms(kernel), "device_ms": graph_ms(kernel),
             "plain_ms": time_ms(lambda: fa.plain_flash_attention_bwd(q, k, v, o, do, scale)),
             "library_ms": time_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
                                                               retain_graph=True)),
-            "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by})
+            "library_device_ms": sdpa_backward_device_ms(q, k, v, do, scale),
+            "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
+            # the design's exponentials, two a logit (one in each role), at the
+            # special-function units' rate; beside the bound, not in its place
+            "ex2_floor_ms": 2 * b * h * sq * sk / ex2_per_s * 1e3,
+            "grid": list(plan["grid"]), "threads": plan["threads"],
+            "smem_bytes": plan["smem_bytes"]})
         del lib_out
     log(row)
     return row
@@ -834,16 +851,27 @@ def main() -> int:
     rows["flash_attention_bwd"] = {}
     errs["flash_attention_bwd"] = 0.0
     bwd_shapes = {**tcensus[3]["flash_attention_bwd"], **tcensus[2]["flash_attention_bwd"]}
+    # ex2 a second: 16 a clock on each SM at the card's highest SM clock
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
+    ex2_per_s = 16 * torch.cuda.get_device_properties(0).multi_processor_count * sm_mhz * 1e6
+    bwd_gen = torch.Generator(device="cuda").manual_seed(2)
     for dtype in (torch.bfloat16, torch.float32):
         for (qs, ks, _) in bwd_shapes:
             r = bwd_case(qs, ks, dtype, gen,
-                         timed=(qs, ks, "torch.bfloat16") in tcensus[2]["flash_attention_bwd"])
+                         timed=(qs, ks, "torch.bfloat16") in tcensus[2]["flash_attention_bwd"],
+                         ex2_per_s=ex2_per_s)
             rows["flash_attention_bwd"][(qs, ks, str(dtype))] = r
             errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], r["max_abs_err"])
         for qs, ks in (((1, 2, 1000, 40), (1, 2, 1000, 40)), ((2, 3, 300, 80), (2, 3, 777, 80)),
                        ((1, 2, 130, 8), (1, 2, 65, 8)), ((1, 2, 70, 16), (1, 2, 300, 16)),
                        ((1, 2, 200, 160), (1, 2, 100, 160))):  # ragged tiles, small d
             r = bwd_case(qs, ks, dtype, gen, timed=False)
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], r["max_abs_err"])
+        # d = 64 and 120 run on the next instance up (80, 160), their columns past d
+        # zero and never stored; drawn from their own generator, so that the later
+        # phases draw the inputs they always drew
+        for qs, ks in (((1, 2, 96, 64), (1, 2, 200, 64)), ((1, 2, 100, 120), (1, 2, 150, 120))):
+            r = bwd_case(qs, ks, dtype, bwd_gen, timed=False)
             errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], r["max_abs_err"])
         # d > 160 (the VAE) has no backward; its forward (four warpgroups over the
         # columns) writes lse from the first
@@ -1180,6 +1208,10 @@ def main() -> int:
     share = {"bytes": 0.0, "operations": 0.0}
     for k, n in per_step.items():
         share[rows_b[k]["bound_by"]] += n * rows_b[k]["bound_ms"]
+    # a floor of this design (two ex2 a logit), computed, not measured: logged
+    # beside the bound, kept out of the kernels line
+    log({"kernel": "flash_attention_bwd", "per": "micro-step, bf16",
+         "bound_ms": per_step_sum("bound_ms"), "ex2_floor_ms": per_step_sum("ex2_floor_ms")})
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "clap2diffusion_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1189,6 +1221,8 @@ def main() -> int:
         "ms": per_step_sum("kernel_ms"), "plain_ms": per_step_sum("plain_ms"),
         "bound_ms": per_step_sum("bound_ms"), "bound_by": max(share, key=share.get),
         "library_ms": per_step_sum("library_ms"), "per": "micro-step, bf16",
+        "device_ms": per_step_sum("device_ms"),
+        "library_device_ms": per_step_sum("library_device_ms"),
         "gn_backward_ms": {str(r["x"]): r["backward_ms"] for r in gn_grad_rows},
     })
     # the packed forward per image under C2D_PACKED_FLASH=1 (phase 3b), bf16

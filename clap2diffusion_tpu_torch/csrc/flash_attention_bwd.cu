@@ -10,32 +10,49 @@
 //   dQ = dS K,    dK = dS^T Q
 // for each (batch, head), with fp32 logits, softmax and accumulation.
 //
-// What bounds it on an H100: the work is 5 products of 2*Sq*Sk*d operations
-// against q, k, v, o, dO, dq, dk, dv moved once. At the UNet's training shapes
-// ([4,8,4096,40], [4,8,1024,80]) that is operations; at [4,8,256,160] bytes.
-// The TPU kernel kept all of K and V of a head in VMEM and accumulated dK/dV
-// in its output buffer across the sequential q-block grid. Here K+V of one
-// head at [4096,160] bf16 is 2.6 MB against 227 KB of shared memory, and
-// blocks run in no order, so the work is split in three launches with no
-// atomics (every output element is written by exactly one thread, so the
-// result is bit-identical from run to run):
-//   1. delta = rowsum(dO * O) in fp32, one warp per query row;
-//   2. dK/dV: one block of 4 warps per (batch*head, 64-key tile, column
-//      chunk). Each warp owns 16 keys and keeps their dK and dV rows in fp32
-//      registers while the block streams every 64-query tile of Q and dO
-//      through shared memory; S^T = K Q^T and dP^T = V dO^T run on
-//      mma.sync.m16n8k16 (bf16 in, fp32 accumulate), P^T and dS^T go from
-//      the accumulators to the A operand in registers, rounded to bf16.
-//      For d > 80 the dK/dV columns are split in two chunks across grid.z
-//      (each recomputes S^T and dP^T), which keeps the accumulators at 80
-//      registers per thread;
-//   3. dQ: one block per (batch*head, 64-query tile), streaming K and V in
-//      64-key tiles, dQ in fp32 registers.
-// Head dims are zero-padded to a multiple of 16 in shared memory only (d=40
-// -> 48). P and dS are rounded to bf16 before dV = P^T dO, dK = dS^T Q and
+// What bounds it on an H100. The TPU kernel kept all of K and V of a head in
+// VMEM and accumulated dK/dV in its output buffer across the sequential
+// q-block grid; here blocks run in no order and nothing carries over between
+// them, so without atomics (every output element is written by one thread,
+// and two launches give the same bits) dK/dV and dQ are computed by separate
+// blocks, and each recomputes S and dP: 7 products of 2*Sq*Sk*d operations
+// instead of the 5 a single pass needs. At [4,8,4096,40] that is 0.217 ms of
+// bf16 tensor-core time for 5 products, 0.304 ms for 7, and 0.339 ms once d
+// = 40 is padded to 48 in the four products whose depth is d (S and dP, in
+// both roles). The exponentials are as large: two ex2 a logit (one per
+// role), 1.07e9 a call, ~0.26-0.29 ms at 16 a clock per SM. Bytes (q, k,
+// v, o, dO in, dq, dk, dv out, once each) are 0.03 ms. At [4,8,256,160] the
+// work is small and the grid is what matters. The design, after a delta
+// pre-pass (delta = rowsum(dO * O) in fp32, one warp per query row), is one
+// launch of flash_bwd_bf16 whose blocks take one of two roles by blockIdx.x:
+//   * dK/dV: a block per (run of 192 keys, 128 where d > 80; batch*head), one
+//     warpgroup per 64-key sub-tile, each holding its dK and dV rows in fp32
+//     registers (d/2 each a thread) for the one epilogue store. K and V of
+//     the block's keys are loaded once in the Q-tile layout of
+//     attention_core.cuh (core matrices, a zero chunk where d % 16 != 0) and
+//     serve as the A operands of S^T = K Q^T and dP^T = V dO^T. Q and dO
+//     stream in 64-query tiles through a 3-stage cp.async ring in the K/V-tile
+//     layout, with the tile's lse and delta beside them; one sweep over the
+//     queries serves every sub-tile. That layout is the K-major B of S^T and
+//     dP^T, and, read MN-major, the B of dV += P^T dO and dK += dS^T Q with
+//     N = d exactly (P^T and dS^T from registers as bf16 A fragments). No
+//     transpose is stored anywhere. Queries past Sq have P = 0; keys past Sk
+//     are never stored;
+//   * dQ: the forward's per-head pipeline, a block per (run of as many
+//     queries; batch*head), one warpgroup per 64-row sub-tile: Q and dO
+//     loaded once as A tiles, K and V streamed through the ring; S = Q K^T
+//     and dP = dO V^T, P = exp2(S*sl2 - lse*log2 e) and dS = P (dP - delta)
+//     scale, dQ += dS K with K read MN-major. Keys past Sk have P = 0.
+// The roles are independent once delta exists. One launch for both fills
+// the card where each alone leaves SMs idle (64 blocks a role at
+// [4,8,256,160]) and has one last wave instead of two.
+// Products are wgmma (m64n64k16 from shared memory for S and dP, m64nNk16
+// with a register A for the rest), fp32 accumulation. Head dims run on the
+// instances 40, 80 and 160, the columns past d zero in shared memory and never
+// stored. P and dS are rounded to bf16 before dV = P^T dO, dK = dS^T Q and
 // dQ = dS K; the TPU kernel did those products in fp32.
 // fp32 inputs take a plain FMA kernel (16 queries x 32 keys per step, all
-// operands in shared memory), exact to fp32 rounding.
+// operands in shared memory), exact to fp32 rounding; it serves the checks.
 //
 // Every entry returns cudaGetLastError() after its launches; the Python
 // wrapper raises when it is not cudaSuccess.
@@ -45,7 +62,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_core.cuh"
+
 namespace {
+
+using namespace c2d;
 
 struct BwdParams {
   const void* q;
@@ -70,6 +91,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+cudaError_t set_smem(const void* fn, size_t bytes) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // ------------------------------------------------------- 1. delta (any type)
 
 template <typename T>
@@ -88,297 +113,382 @@ __global__ void __launch_bounds__(128) bwd_delta(const BwdParams p) {
   if (lane == 0) p.delta[row] = acc;
 }
 
+__host__ __device__ inline unsigned delta_blocks(int B, int H, int Sq) {
+  return (unsigned)(((long long)B * H * Sq * 32 + 127) / 128);
+}
+
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int BQ = 64;  // query rows per tile
-constexpr int BK = 64;  // key rows per tile
-constexpr int PAD = 8;  // row padding in elements: conflict-free fragment reads
-constexpr int TS = 64 + PAD;  // row stride of a transposed [d][64] tile
+constexpr int BQ = attn::BQ;  // queries of a streamed tile, rows of a warpgroup's sub-tile
+constexpr int BK = attn::BK;  // keys of a streamed tile
+constexpr int STAGES = attn::STAGES;
+constexpr int MAX_D = 160;
+constexpr int STATS_BYTES = 2 * BQ * 4;  // lse and delta of a 64-query tile, fp32
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The instance a head dim runs on: the UNet's 40, 80 and 160, and for any
+// other d the next one up (its columns past d are zeros in shared memory).
+__host__ __device__ constexpr int instance_d(int d) { return d <= 40 ? 40 : d <= 80 ? 80 : MAX_D; }
+
+// Warpgroups (64-row sub-tiles) of a block, one count for both roles since
+// they share a launch. dK/dV: a thread holds dK and dV (d/2 registers each)
+// beside S^T and dP^T (32 each): 144 at d = 80 about fills the 168 a thread
+// of 384 may have, 224 at d = 160 needs 256 threads. dQ: 192 query rows' Q
+// and dO tiles and the ring would exceed 227 KB at d = 160.
+__host__ __device__ constexpr int warpgroups(int d) { return d <= 80 ? 3 : 2; }
+
+// Bytes of a tile of `rows` rows in the Q-tile layout (A operands).
+__host__ __device__ inline int a_tile_bytes(int rows, int d) {
+  return rows / 8 * attn::q_block_stride(1, d);
+}
+// A dK/dV stage: the Q tile, the dO tile, then lse and delta of its queries.
+__host__ __device__ inline int dkdv_stage_bytes(int d) {
+  return 2 * attn::kv_tile_bytes(d) + STATS_BYTES;
+}
+// dK/dV block: K and V of its keys, and the ring of Q/dO stages.
+__host__ __device__ inline int dkdv_smem_bytes(int d) {
+  return 2 * a_tile_bytes(BQ * warpgroups(d), d) + STAGES * dkdv_stage_bytes(d);
+}
+// dQ block: Q and dO of its queries, and the ring of (K tile, V tile) stages.
+__host__ __device__ inline int dq_smem_bytes(int d) {
+  return 2 * a_tile_bytes(BQ * warpgroups(d), d) + STAGES * 2 * attn::kv_tile_bytes(d);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Copy 4 bytes global -> shared without blocking the thread; with valid ==
+// false the 4 bytes are zero-filled (src must still be a mapped address).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy rows [r0, r0+64) of a [S, D] bf16 matrix (row stride rs) into a
-// row-major [64][DP+PAD] tile, zero-filling rows >= S and columns >= D. With
-// TR, columns [c0, c0+TC) also go transposed into a [TC][TS] tile.
-template <int DP, int TC, bool TR>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* src, long long rs, int r0, int S,
-                                          int D, __nv_bfloat16* dst, __nv_bfloat16* dst_t,
-                                          int c0) {
-  constexpr int QS = DP + PAD, CH = DP / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < 64 * CH; i += 128) {
-    const int r = i % 64, c = (i / 64) * 8;
-    uint4 val = zero;
-    if (r0 + r < S && c < D) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * QS + c) = val;
-    if (TR && c >= c0 && c < c0 + TC) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+// c = X Y^T and e = X2 Y2^T for the warpgroup's 64 rows x 64 columns, one
+// commit group: X, X2 in the Q-tile layout (the warpgroup's first row group
+// at a1, a2; `abs` bytes per 8 rows), Y, Y2 the K-major B tiles of the K/V
+// layout (`bbs`). Raw dot products, started and awaited. (Awaiting c alone
+// first, so that its exponentials overlap the second product, took as long
+// at [4,8,4096,40] and spilled more registers.)
+template <int KS>
+__device__ __forceinline__ void two_products(float c[BK / 8][4], float e[BK / 8][4], uint32_t a1,
+                                             uint32_t b1, uint32_t a2, uint32_t b2, int abs,
+                                             int bbs) {
+  wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) dst_t[(c - c0 + j) * TS + r] = e[j];
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_ss_n64(&c[0][0], wgmma_desc(a1 + 2 * ks * 128, 128, abs),
+                 wgmma_desc(b1 + 2 * ks * 128, 128, bbs), ks > 0);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_ss_n64(&e[0][0], wgmma_desc(a2 + 2 * ks * 128, 128, abs),
+                 wgmma_desc(b2 + 2 * ks * 128, 128, bbs), ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wgmma_pin(c[n][i]);
+      wgmma_pin(e[n][i]);
     }
   }
 }
 
-// 2. dK and dV for 64 keys x DVC columns.
-template <int DP, int DVC>
-__global__ void __launch_bounds__(128) flash_bwd_dkdv_bf16(const BwdParams p) {
-  constexpr int QS = DP + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][QS]
-  __nv_bfloat16* v_s = k_s + BK * QS;                                 // [BK][QS]
-  __nv_bfloat16* q_s = v_s + BK * QS;                                 // [BQ][QS]
-  __nv_bfloat16* g_s = q_s + BQ * QS;                                 // [BQ][QS] dO
-  __nv_bfloat16* qt_s = g_s + BQ * QS;                                // [DVC][TS] Q^T
-  __nv_bfloat16* gt_s = qt_s + DVC * TS;                              // [DVC][TS] dO^T
-  float* l2_s = reinterpret_cast<float*>(gt_s + DVC * TS);            // [BQ] lse*log2(e)
-  float* dl_s = l2_s + BQ;                                            // [BQ] delta
+// The accumulator's 64 columns as bf16 A fragments of four k16 steps.
+__device__ __forceinline__ void a_fragments(uint32_t f[BK / 16][4], const float s[BK / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    f[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    f[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    f[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    f[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK, kr = warp * 16;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int c0 = blockIdx.z * DVC;
+// x += Px Bx and y += Py By over 64 rows of the K dimension, one commit
+// group: Px, Py from registers rounded to bf16, Bx, By read MN-major from
+// K/V-layout tiles with N = D columns exactly (attn::pv_columns).
+template <int D>
+__device__ __forceinline__ void two_pv(float x[D / 8][4], const float px[BK / 8][4], uint32_t bx,
+                                       float y[D / 8][4], const float py[BK / 8][4], uint32_t by,
+                                       int kbs) {
+  uint32_t fx[BK / 16][4], fy[BK / 16][4];
+  a_fragments(fx, px);
+  a_fragments(fy, py);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    attn::pv_columns<D>(x, fx[kk], bx + 2 * kk * kbs, kbs);
+    attn::pv_columns<D>(y, fy[kk], by + 2 * kk * kbs, kbs);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wgmma_pin(fx[kk][i]);
+      wgmma_pin(fy[kk][i]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wgmma_pin(x[j][i]);
+      wgmma_pin(y[j][i]);
+    }
+  }
+}
+
+// Rows r0 and r0 + 8 of an accumulator as bf16 pairs, the first `ncols`
+// columns (a multiple of 8), rows at or past S not stored.
+template <int NT>
+__device__ __forceinline__ void store_acc(const float a[NT][4], __nv_bfloat16* g, long long ss,
+                                          int r0, int S, int lane, int ncols) {
+  const int t = lane & 3, r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (j * 8 >= ncols) break;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(g + (long long)r0 * ss + col) = pack_bf16(a[j][0], a[j][1]);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(g + (long long)r1 * ss + col) = pack_bf16(a[j][2], a[j][3]);
+  }
+}
+
+__device__ __forceinline__ void zero_smem(unsigned char* smem, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+}
+
+// 2. dK and dV of keys [kb * ROWS, kb * ROWS + ROWS) of head bh.
+template <int D, int WG>
+__device__ __forceinline__ void dkdv_block(const BwdParams& p, int kb, int bh,
+                                           unsigned char* smem) {
+  constexpr int NT = D / 8, KS = (D + 15) / 16, ROWS = WG * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t4 = lane & 3;
+  const int nthreads = blockDim.x;
+  const int sub = warp / 4, wq = warp % 4;
+  const int k0 = kb * ROWS, b = bh / p.H, h = bh % p.H;
+  const int qbs = attn::q_block_stride(1, D), kbs = attn::kv_block_stride(D);
+  const int tile_bytes = attn::kv_tile_bytes(D), stage_bytes = dkdv_stage_bytes(D);
+  const uint32_t k_s = smem_u32(smem), v_s = k_s + a_tile_bytes(ROWS, D);
+  const uint32_t ring = v_s + a_tile_bytes(ROWS, D);
+  zero_smem(smem, dkdv_smem_bytes(D));  // zero chunks, pad chunks, rows never copied
+
   const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
   const __nv_bfloat16* kg = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h * p.ksh;
   const __nv_bfloat16* vg = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + h * p.vsh;
   const __nv_bfloat16* gg = reinterpret_cast<const __nv_bfloat16*>(p.g) + b * p.gsb + h * p.gsh;
   const float* lse = p.lse + (long long)bh * p.Sq;
   const float* delta = p.delta + (long long)bh * p.Sq;
+  const int ntiles = (p.Sq + BQ - 1) / BQ;
+
+  auto load_stage = [&](int slot, int tile) {
+    const uint32_t dst = ring + slot * stage_bytes;  // Q tile, dO tile, lse, delta
+    attn::load_tile_async<BQ>(dst, qg, 0, p.qss, tile * BQ, p.Sq, 1, p.D, NT, kbs, nthreads);
+    attn::load_tile_async<BQ>(dst + tile_bytes, gg, 0, p.gss, tile * BQ, p.Sq, 1, p.D, NT, kbs,
+                              nthreads);
+    if (tid < 2 * BQ) {  // past Sq: zeros (those queries' P is set to 0)
+      const int qi = tile * BQ + (tid & (BQ - 1));
+      const bool ok = qi < p.Sq;
+      cp_async4(dst + 2 * tile_bytes + tid * 4, (tid < BQ ? lse : delta) + (ok ? qi : 0), ok);
+    }
+  };
+
+  // K and V travel in the first group, with the first stage
+  attn::load_tile_async<ROWS>(k_s, kg, 0, p.kss, k0, p.Sk, 1, p.D, 2 * KS, qbs, nthreads);
+  attn::load_tile_async<ROWS>(v_s, vg, 0, p.vss, k0, p.Sk, 1, p.D, 2 * KS, qbs, nthreads);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load_stage(s, s);
+    cp_async_commit();
+  }
+  const bool active = k0 + sub * BQ < p.Sk;  // else this warpgroup loads and waits only
   const float sl2 = p.scale * LOG2E;
-
-  load_tile<DP, DVC, false>(kg, p.kss, k0, p.Sk, p.D, k_s, nullptr, 0);
-  load_tile<DP, DVC, false>(vg, p.vss, k0, p.Sk, p.D, v_s, nullptr, 0);
-
-  float dk[DVC / 8][4], dv[DVC / 8][4];
+  const uint32_t k_sub = k_s + sub * BQ / 8 * qbs, v_sub = v_s + sub * BQ / 8 * qbs;
+  float dk[NT][4], dv[NT][4];
 #pragma unroll
-  for (int j = 0; j < DVC / 8; ++j)
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  for (int q0 = 0; q0 < p.Sq; q0 += BQ) {
-    __syncthreads();  // the previous Q/dO tile is consumed
-    load_tile<DP, DVC, true>(qg, p.qss, q0, p.Sq, p.D, q_s, qt_s, c0);
-    load_tile<DP, DVC, true>(gg, p.gss, q0, p.Sq, p.D, g_s, gt_s, c0);
-    if (tid < BQ) {
-      const bool ok = q0 + tid < p.Sq;
-      l2_s[tid] = ok ? lse[q0 + tid] * LOG2E : INFINITY;  // exp2(-inf) = 0: no row
-      dl_s[tid] = ok ? delta[q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries.
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      const __nv_bfloat16* ka = k_s + (kr + g) * QS + ks * 16 + 2 * t;
-      const __nv_bfloat16* va = v_s + (kr + g) * QS + ks * 16 + 2 * t;
-      const uint32_t ak[4] = {lds32(ka), lds32(ka + 8 * QS), lds32(ka + 8),
-                              lds32(ka + 8 * QS + 8)};
-      const uint32_t av[4] = {lds32(va), lds32(va + 8 * QS), lds32(va + 8),
-                              lds32(va + 8 * QS + 8)};
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
-        const __nv_bfloat16* qb = q_s + (n * 8 + g) * QS + ks * 16 + 2 * t;
-        const __nv_bfloat16* gb = g_s + (n * 8 + g) * QS + ks * 16 + 2 * t;
-        mma_bf16(st[n], ak, lds32(qb), lds32(qb + 8));
-        mma_bf16(dpt[n], av, lds32(gb), lds32(gb + 8));
-      }
-    }
-
-    // P^T and dS^T; a thread holds query columns n*8 + 2t + (e & 1).
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + 2 * t + (e & 1);
-        const float pe = exp2f(st[n][e] * sl2 - l2_s[qc]);
-        st[n][e] = pe;
-        dpt[n][e] = pe * (dpt[n][e] - dl_s[qc]) * p.scale;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q, P and dS rounded to bf16.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t ap[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t as[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DVC / 8; ++j) {
-        const __nv_bfloat16* gb = gt_s + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        const __nv_bfloat16* qb = qt_s + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16(dv[j], ap, lds32(gb), lds32(gb + 8));
-        mma_bf16(dk[j], as, lds32(qb), lds32(qb + 8));
-      }
-    }
+    for (int i = 0; i < 4; ++i) dk[j][i] = dv[j][i] = 0.f;
   }
 
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<STAGES - 2>();  // this tile has landed
+    fence_proxy_async();          // and wgmma may read what this thread copied
+    __syncthreads();              // for every thread; the previous tile's slot is free
+    if (tile + STAGES - 1 < ntiles)
+      load_stage((tile + STAGES - 1) % STAGES, tile + STAGES - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const uint32_t q_t = ring + (tile % STAGES) * stage_bytes, g_t = q_t + tile_bytes;
+    const float* st_lse = reinterpret_cast<const float*>(smem + (q_t - k_s) + 2 * tile_bytes);
+    const float* st_delta = st_lse + BQ;
+    // S^T = K Q^T and dP^T = V dO^T: the warpgroup's 64 keys x the tile's 64 queries
+    float s[BK / 8][4], dp[BK / 8][4];
+    two_products<KS>(s, dp, k_sub, q_t, v_sub, g_t, qbs, kbs);
+    // P^T and dS^T in place; the thread's query columns are n*8 + 2*t4 + {0, 1}
+    const int valid = p.Sq - tile * BQ;  // queries of this tile: 64 but in the last
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(st_lse + n * 8 + 2 * t4);
+      const float2 dl = *reinterpret_cast<const float2*>(st_delta + n * 8 + 2 * t4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float pe = fast_exp2(fmaf(s[n][i], sl2, -((i & 1) ? l2.y : l2.x) * LOG2E));
+        if (n * 8 + 2 * t4 + (i & 1) >= valid) pe = 0.f;  // no P past Sq
+        s[n][i] = pe;
+        dp[n][i] = pe * (dp[n][i] - ((i & 1) ? dl.y : dl.x)) * p.scale;
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16
+    two_pv<D>(dv, s, g_t, dk, dp, q_t, kbs);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
   __nv_bfloat16* dkg = reinterpret_cast<__nv_bfloat16*>(p.dk) + b * p.dksb + h * p.dksh;
   __nv_bfloat16* dvg = reinterpret_cast<__nv_bfloat16*>(p.dv) + b * p.dvsb + h * p.dvsh;
-  const int r0 = k0 + kr + g, r1 = r0 + 8;
-#pragma unroll
-  for (int j = 0; j < DVC / 8; ++j) {
-    const int col = c0 + j * 8 + 2 * t;  // even; D % 8 == 0 keeps col+1 < D
-    if (col >= p.D) continue;
-    if (r0 < p.Sk) {
-      *reinterpret_cast<uint32_t*>(dkg + r0 * p.dkss + col) = pack_bf16(dk[j][0], dk[j][1]);
-      *reinterpret_cast<uint32_t*>(dvg + r0 * p.dvss + col) = pack_bf16(dv[j][0], dv[j][1]);
-    }
-    if (r1 < p.Sk) {
-      *reinterpret_cast<uint32_t*>(dkg + r1 * p.dkss + col) = pack_bf16(dk[j][2], dk[j][3]);
-      *reinterpret_cast<uint32_t*>(dvg + r1 * p.dvss + col) = pack_bf16(dv[j][2], dv[j][3]);
-    }
-  }
+  const int r0 = k0 + sub * BQ + wq * 16 + (lane >> 2);
+  store_acc<NT>(dk, dkg, p.dkss, r0, p.Sk, lane, p.D);
+  store_acc<NT>(dv, dvg, p.dvss, r0, p.Sk, lane, p.D);
 }
 
-// 3. dQ for 64 queries.
-template <int DP>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const BwdParams p) {
-  constexpr int QS = DP + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][QS]
-  __nv_bfloat16* g_s = q_s + BQ * QS;                                 // [BQ][QS] dO
-  __nv_bfloat16* k_s = g_s + BQ * QS;                                 // [BK][QS]
-  __nv_bfloat16* v_s = k_s + BK * QS;                                 // [BK][QS]
-  __nv_bfloat16* kt_s = v_s + BK * QS;                                // [DP][TS] K^T
+// 3. dQ of queries [qb * ROWS, qb * ROWS + ROWS) of head bh.
+template <int D, int WG>
+__device__ __forceinline__ void dq_block(const BwdParams& p, int qb, int bh, unsigned char* smem) {
+  constexpr int NT = D / 8, KS = (D + 15) / 16, ROWS = WG * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t4 = lane & 3;
+  const int nthreads = blockDim.x;
+  const int sub = warp / 4, wq = warp % 4;
+  const int q0 = qb * ROWS, b = bh / p.H, h = bh % p.H;
+  const int qbs = attn::q_block_stride(1, D), kbs = attn::kv_block_stride(D);
+  const int tile_bytes = attn::kv_tile_bytes(D);
+  const uint32_t q_s = smem_u32(smem), g_s = q_s + a_tile_bytes(ROWS, D);
+  const uint32_t ring = g_s + a_tile_bytes(ROWS, D);
+  zero_smem(smem, dq_smem_bytes(D));
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, qr = warp * 16;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
   const __nv_bfloat16* kg = reinterpret_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h * p.ksh;
   const __nv_bfloat16* vg = reinterpret_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + h * p.vsh;
   const __nv_bfloat16* gg = reinterpret_cast<const __nv_bfloat16*>(p.g) + b * p.gsb + h * p.gsh;
-  const float sl2 = p.scale * LOG2E;
+  const int ntiles = (p.Sk + BK - 1) / BK;
 
-  load_tile<DP, DP, false>(qg, p.qss, q0, p.Sq, p.D, q_s, nullptr, 0);
-  load_tile<DP, DP, false>(gg, p.gss, q0, p.Sq, p.D, g_s, nullptr, 0);
-  const int r0 = q0 + qr + g, r1 = r0 + 8;
+  auto load_stage = [&](int slot, int tile) {
+    const uint32_t dst = ring + slot * 2 * tile_bytes;  // K tile, then V tile
+    attn::load_tile_async<BK>(dst, kg, 0, p.kss, tile * BK, p.Sk, 1, p.D, NT, kbs, nthreads);
+    attn::load_tile_async<BK>(dst + tile_bytes, vg, 0, p.vss, tile * BK, p.Sk, 1, p.D, NT, kbs,
+                              nthreads);
+  };
+
+  // Q and dO travel in the first group, with the first stage
+  attn::load_tile_async<ROWS>(q_s, qg, 0, p.qss, q0, p.Sq, 1, p.D, 2 * KS, qbs, nthreads);
+  attn::load_tile_async<ROWS>(g_s, gg, 0, p.gss, q0, p.Sq, 1, p.D, 2 * KS, qbs, nthreads);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load_stage(s, s);
+    cp_async_commit();
+  }
+  const bool active = q0 + sub * BQ < p.Sq;
+  const float sl2 = p.scale * LOG2E;
+  const int r0 = q0 + sub * BQ + wq * 16 + (lane >> 2), r1 = r0 + 8;
   const long long base = (long long)bh * p.Sq;
+  // rows past Sq: lse = delta = 0, their dS is finite and never stored
   const float l20 = r0 < p.Sq ? p.lse[base + r0] * LOG2E : 0.f;
   const float l21 = r1 < p.Sq ? p.lse[base + r1] * LOG2E : 0.f;
   const float d0 = r0 < p.Sq ? p.delta[base + r0] : 0.f;
   const float d1 = r1 < p.Sq ? p.delta[base + r1] : 0.f;
-
-  float acc[DP / 8][4];
+  const uint32_t q_sub = q_s + sub * BQ / 8 * qbs, g_sub = g_s + sub * BQ / 8 * qbs;
+  float dq[NT][4];
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < NT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
-  for (int k0 = 0; k0 < p.Sk; k0 += BK) {
-    __syncthreads();  // the previous K/V tile is consumed (and Q/dO are stored)
-    load_tile<DP, DP, true>(kg, p.kss, k0, p.Sk, p.D, k_s, kt_s, 0);
-    load_tile<DP, DP, false>(vg, p.vss, k0, p.Sk, p.D, v_s, nullptr, 0);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
     __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x BK keys.
+    if (tile + STAGES - 1 < ntiles)
+      load_stage((tile + STAGES - 1) % STAGES, tile + STAGES - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const uint32_t k_t = ring + (tile % STAGES) * 2 * tile_bytes, v_t = k_t + tile_bytes;
+    // S = Q K^T and dP = dO V^T: the warpgroup's 64 queries x the tile's 64 keys
     float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      const __nv_bfloat16* qa = q_s + (qr + g) * QS + ks * 16 + 2 * t;
-      const __nv_bfloat16* ga = g_s + (qr + g) * QS + ks * 16 + 2 * t;
-      const uint32_t aq[4] = {lds32(qa), lds32(qa + 8 * QS), lds32(qa + 8),
-                              lds32(qa + 8 * QS + 8)};
-      const uint32_t ag[4] = {lds32(ga), lds32(ga + 8 * QS), lds32(ga + 8),
-                              lds32(ga + 8 * QS + 8)};
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const __nv_bfloat16* kb = k_s + (n * 8 + g) * QS + ks * 16 + 2 * t;
-        const __nv_bfloat16* vb = v_s + (n * 8 + g) * QS + ks * 16 + 2 * t;
-        mma_bf16(s[n], aq, lds32(kb), lds32(kb + 8));
-        mma_bf16(dp[n], ag, lds32(vb), lds32(vb + 8));
-      }
-    }
-
-    // dS, in place of S; a thread holds rows g (e < 2) and g + 8.
+    two_products<KS>(s, dp, q_sub, k_t, g_sub, v_t, qbs, kbs);
+    const int valid = p.Sk - tile * BK;  // keys of this tile: 64 but in the last
+    // P and dS in place
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        const float pe = key < p.Sk ? exp2f(s[n][e] * sl2 - (e < 2 ? l20 : l21)) : 0.f;
-        s[n][e] = pe * (dp[n][e] - (e < 2 ? d0 : d1)) * p.scale;
+      for (int i = 0; i < 4; ++i) {
+        float pe = fast_exp2(fmaf(s[n][i], sl2, -(i < 2 ? l20 : l21)));
+        if (n * 8 + 2 * t4 + (i & 1) >= valid) pe = 0.f;  // no P past Sk
+        s[n][i] = pe * (dp[n][i] - (i < 2 ? d0 : d1)) * p.scale;
       }
     }
-
-    // dQ += dS K, dS rounded to bf16.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        const __nv_bfloat16* kb = kt_s + (j * 8 + g) * TS + kk * 16 + 2 * t;
-        mma_bf16(acc[j], a, lds32(kb), lds32(kb + 8));
-      }
-    }
+    // dQ += dS K, dS rounded to bf16, K read MN-major
+    attn::pv_tile<D>(dq, s, k_t, kbs, 0);
   }
-
+  cp_async_wait<0>();
+  if (!active) return;
   __nv_bfloat16* dqg = reinterpret_cast<__nv_bfloat16*>(p.dq) + b * p.dqsb + h * p.dqsh;
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (col >= p.D) continue;
-    if (r0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(dqg + r0 * p.dqss + col) = pack_bf16(acc[j][0], acc[j][1]);
-    if (r1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(dqg + r1 * p.dqss + col) = pack_bf16(acc[j][2], acc[j][3]);
+  store_acc<NT>(dq, dqg, p.dqss, r0, p.Sq, lane, p.D);
+}
+
+// Both roles in one launch: blocks x < kv_blocks of each row of the grid
+// take keys, the rest queries.
+template <int D>
+__global__ void __launch_bounds__(128 * warpgroups(D), 1)
+    flash_bwd_bf16(const BwdParams p, int kv_blocks) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  if ((int)blockIdx.x < kv_blocks)
+    dkdv_block<D, warpgroups(D)>(p, blockIdx.x, blockIdx.y, smem_raw);
+  else
+    dq_block<D, warpgroups(D)>(p, blockIdx.x - kv_blocks, blockIdx.y, smem_raw);
+}
+
+// The bf16 launch: what the kernel is launched with, and what
+// c2d_flash_bwd_plan reports. One launch for both roles: the dK/dV and the
+// dQ blocks of a head side by side in a row of the grid. (Two launches, one
+// a role, took 1.26-1.29 / 0.206 / 0.054 ms at [4,8,{4096,1024,256},
+// {40,80,160}] on an H100 against 1.14 / 0.172 / 0.035 for one: the second
+// launch waited for the first one's last wave.)
+struct Geometry {
+  int d;                           // the instance
+  int kv_x, kv_rows;               // dK/dV: blocks along the keys of a head, keys a block
+  int q_x, q_rows;                 // dQ: blocks along the queries of a head, queries a block
+  dim3 grid;                       // (kv_x + q_x, batch * head)
+  int threads, smem;
+};
+
+Geometry geometry(int B, int H, int Sq, int Sk, int D) {
+  const int d = instance_d(D);
+  const int rows = BQ * warpgroups(d);
+  const int kv_x = (Sk + rows - 1) / rows, q_x = (Sq + rows - 1) / rows;
+  const int smem = dkdv_smem_bytes(d) > dq_smem_bytes(d) ? dkdv_smem_bytes(d) : dq_smem_bytes(d);
+  return {d, kv_x, rows, q_x, rows, dim3(kv_x + q_x, B * H, 1), 128 * warpgroups(d), smem};
+}
+
+template <int D>
+cudaError_t launch_instance(const BwdParams& p, const Geometry& g, cudaStream_t stream) {
+  static int configured = 0;
+  if (g.smem > configured) {
+    cudaError_t e = set_smem((const void*)flash_bwd_bf16<D>, g.smem);
+    if (e != cudaSuccess) return e;
+    configured = g.smem;
   }
-}
-
-cudaError_t set_smem(const void* fn, size_t bytes) {
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <int DP, int DVC>
-cudaError_t launch_bf16(const BwdParams& p, cudaStream_t stream) {
-  constexpr int QS = DP + PAD;
-  constexpr size_t smem_kv =
-      (size_t)(2 * BK * QS + 2 * BQ * QS + 2 * DVC * TS) * sizeof(__nv_bfloat16) +
-      2 * BQ * sizeof(float);
-  constexpr size_t smem_q = (size_t)(2 * BQ * QS + 2 * BK * QS + DP * TS) * sizeof(__nv_bfloat16);
-  cudaError_t e = set_smem((const void*)flash_bwd_dkdv_bf16<DP, DVC>, smem_kv);
-  if (e != cudaSuccess) return e;
-  e = set_smem((const void*)flash_bwd_dq_bf16<DP>, smem_q);
-  if (e != cudaSuccess) return e;
-  const dim3 grid_kv((p.Sk + BK - 1) / BK, p.B * p.H, (p.D + DVC - 1) / DVC);
-  flash_bwd_dkdv_bf16<DP, DVC><<<grid_kv, 128, smem_kv, stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const dim3 grid_q((p.Sq + BQ - 1) / BQ, p.B * p.H, 1);
-  flash_bwd_dq_bf16<DP><<<grid_q, 128, smem_q, stream>>>(p);
+  flash_bwd_bf16<D><<<g.grid, g.threads, g.smem, stream>>>(p, g.kv_x);
   return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const BwdParams& p, cudaStream_t stream) {
+  const Geometry g = geometry(p.B, p.H, p.Sq, p.Sk, p.D);
+  switch (g.d) {
+    case 40: return launch_instance<40>(p, g, stream);
+    case 80: return launch_instance<80>(p, g, stream);
+    default: return launch_instance<MAX_D>(p, g, stream);
+  }
 }
 
 // ---------------------------------------------------------------- fp32 path
@@ -564,9 +674,8 @@ int c2d_flash_attention_bwd(const void* q, const void* k, const void* v, const v
                     s[15], s[16], s[17], s[18], s[19], s[20], s[21], s[22], s[23], scale};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D % 8 || D > 160 || Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)B * H * Sq;
-  const unsigned blocks = (unsigned)((rows * 32 + 127) / 128);
+  if (D % 8 || D < 8 || D > MAX_D || Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = delta_blocks(B, H, Sq);
   if (dtype == 1) {
     bwd_delta<float><<<blocks, 128, 0, st>>>(p);
   } else {
@@ -575,11 +684,24 @@ int c2d_flash_attention_bwd(const void* q, const void* k, const void* v, const v
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (dtype == 1) return (int)launch_f32(p, st);
-  if (D <= 48) return (int)launch_bf16<48, 48>(p, st);
-  if (D <= 64) return (int)launch_bf16<64, 64>(p, st);
-  if (D <= 80) return (int)launch_bf16<80, 80>(p, st);
-  if (D <= 128) return (int)launch_bf16<128, 64>(p, st);
-  return (int)launch_bf16<160, 80>(p, st);
+  return (int)launch_bf16(p, st);
+}
+
+// The geometry c2d_flash_attention_bwd launches the bf16 kernels with on
+// these arguments (no launch; host only): out = {instance head dim, delta
+// pre-pass blocks, grid.x, grid.y, threads, dynamic shared memory in bytes,
+// stages, dK/dV blocks of a grid row, keys a dK/dV block, dK/dV accumulator
+// registers a thread, dQ blocks of a grid row, queries a dQ block, dQ
+// accumulator registers a thread}.
+int c2d_flash_bwd_plan(int B, int H, int Sq, int Sk, int D, int* out) {
+  if (D % 8 || D < 8 || D > MAX_D || Sq < 1 || Sk < 1 || B < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g = geometry(B, H, Sq, Sk, D);
+  const int vals[13] = {g.d,      (int)delta_blocks(B, H, Sq), (int)g.grid.x, (int)g.grid.y,
+                        g.threads, g.smem,   STAGES,  g.kv_x,  g.kv_rows,   g.d,
+                        g.q_x,     g.q_rows, g.d / 2};
+  for (int i = 0; i < 13; ++i) out[i] = vals[i];
+  return 0;
 }
 
 const char* c2d_cuda_error_string_bwd(int err) {

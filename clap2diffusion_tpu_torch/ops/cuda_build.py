@@ -41,7 +41,7 @@ _TYPE_NAMES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
 
 
 def _short_name(mangled: str) -> str:
-    """``flash_bwd_dq_bf16<64>``, ``wino_filter<bf16,f32>`` or
+    """``flash_bwd_bf16<40>``, ``wino_filter<bf16,f32>`` or
     ``group_norm_fwd<bf16,bf16>`` from a mangled kernel name of this repo."""
     m = re.search(r"(wino_filter|group_norm_fwd)I((?:13__nv_bfloat16|6__half|f|S\d*_)+)E",
                   mangled)
@@ -51,7 +51,7 @@ def _short_name(mangled: str) -> str:
             # a repeated type is mangled as a substitution (S1_): the one before it
             types.append(types[-1] if tok.startswith("S") else _TYPE_NAMES[tok])
         return f"{m.group(1)}<{','.join(types)}>"
-    m = re.search(r"((?:flash_(?:fwd(?:_wide)?|bwd_dq|bwd_dkdv)|packed_fwd"
+    m = re.search(r"((?:flash_(?:fwd(?:_wide)?|bwd(?:_dq|_dkdv)?)|packed_fwd"
                   r"|wino(?:_gemm|_input|_reduce)?)_(?:bf16|f32)|bwd_delta|qreg_probe)", mangled)
     if m is None:
         return mangled
@@ -140,11 +140,12 @@ def build(source: str, csrc_dir: Optional[str] = None) -> str:
     return out
 
 
-def build_all(sources: Iterable[str]) -> None:
-    """Build several sources at once, one nvcc process each."""
+def build_all(sources: Iterable[str], csrc_dir: Optional[str] = None) -> None:
+    """Build several sources of ``csrc_dir`` (the package's ``csrc/`` by
+    default) at once, one nvcc process each."""
     sources = list(sources)
     with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
-        for fut in [pool.submit(build, s) for s in sources]:
+        for fut in [pool.submit(build, s, csrc_dir) for s in sources]:
             fut.result()
 
 

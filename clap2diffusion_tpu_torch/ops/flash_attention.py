@@ -10,7 +10,11 @@ comments give the design and what bounds each. The bf16 forward runs on the
 tile pipeline of ``csrc/attention_core.cuh`` with one head a block: 192
 query rows on three warpgroups over a 3-stage K/V ring for d <= 160, and 64
 rows on four warpgroups that split the keys of S and the columns of O for
-the VAE's d = 512 (``flash_launch_plan`` is its launch plan).
+the VAE's d = 512 (``flash_launch_plan`` is its launch plan). The bf16
+backward runs on the same tile pipeline: a dK/dV role with 192 (128 above
+d = 80) keys a block, K and V as A tiles and Q, dO streamed, and a dQ role
+like the forward with K, V streamed, both roles in one launch after a
+delta pre-pass; no atomics (``flash_bwd_launch_plan`` is its launch plan).
 
 ``flash_attention(q, k, v, scale)`` takes [B, H, S, D] tensors, bf16 or
 fp32, any strides with a contiguous last dim, and is differentiable. When
@@ -43,8 +47,8 @@ Counters: ``flash_attention.launches`` / ``.shapes`` count per-head forward
 launches and the (q shape, k shape, dtype) they ran on;
 ``packed_flash_attention.launches`` / ``.shapes`` the packed forward's
 launches and (q shape as [B, H, S, D], pack, dtype); ``flash_attention_bwd``
-the same for the backward (one count per backward call, which is three
-kernel launches: delta, dK/dV, dQ).
+the same for the backward (one count per backward call, which is two kernel
+launches: the delta pre-pass, then the dK/dV and dQ roles in one launch).
 """
 
 from __future__ import annotations
@@ -130,16 +134,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = cuda_build.load(_BWD_SOURCE)
+def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare a backward library's C interface, once per library (also a
+    baseline checkout's, which may predate ``c2d_flash_bwd_plan``)."""
     fn = lib.c2d_flash_attention_bwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+        if hasattr(lib, "c2d_flash_bwd_plan"):
+            lib.c2d_flash_bwd_plan.restype = ctypes.c_int
+            lib.c2d_flash_bwd_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.c2d_cuda_error_string_bwd.restype = ctypes.c_char_p
         lib.c2d_cuda_error_string_bwd.argtypes = [ctypes.c_int]
     return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    return _bind_bwd(cuda_build.load(_BWD_SOURCE))
 
 
 def _packed_lib() -> ctypes.CDLL:
@@ -442,6 +454,75 @@ def flash_kernel_plan(b: int, h: int, sq: int, sk: int, d: int) -> dict:
     return {"instance_d": inst, "grid": (gx, gy), "blocks": gx * gy, "threads": threads,
             "smem_bytes": smem, "query_rows": rows, "sub_tiles": sub_tiles, "bk": bk,
             "stages": stages, "key_tiles": -(-sk // bk), "o_regs": o_regs}
+
+
+# the bf16 backward's instances (csrc/flash_attention_bwd.cu: instance_d)
+FLASH_BWD_INSTANCES = (40, 80, 160)
+
+
+def flash_bwd_instance(d: int) -> int:
+    """The head dim of the backward instance that runs ``d``: the UNet's 40,
+    80 and 160, else the next one up (its columns past d are zeros in
+    shared memory and never stored). Refuses what the kernel does not take."""
+    if d % 8 or not 8 <= d <= MAX_BWD_D:
+        raise ValueError(f"flash backward: head dim must be a multiple of 8 in [8, "
+                         f"{MAX_BWD_D}], got {d}")
+    return next(i for i in FLASH_BWD_INSTANCES if d <= i)
+
+
+def flash_bwd_launch_plan(b: int, h: int, sq: int, sk: int, d: int) -> dict:
+    """How the bf16 backward is launched on q [b, h, sq, d] and k, v
+    [b, h, sk, d]: a delta pre-pass (one warp a query row, 4 a block), then
+    one launch whose grid row (one per batch·head) holds the dK/dV blocks,
+    then the dQ blocks of that head. w warpgroups a block (3 up to instance
+    80, else 2), one per 64-row sub-tile. A dK/dV block owns 64·w keys, each
+    warpgroup holding its keys' dK and dV (instance d registers a thread);
+    K and V are loaded once, Q and dO stream in 64-query tiles with their
+    lse and delta through a 3-stage ring. A dQ block owns 64·w queries
+    (instance d / 2 registers a thread); Q and dO are loaded once, K and V
+    stream. The block's shared memory is the larger of the two roles'.
+
+    The source owns the geometry and launches by it alone; this is its
+    mirror for planning and records without a card, and
+    ``flash_bwd_kernel_plan`` is what the built library reports, which
+    ``chip_smoke.py`` holds this against at every shape it runs."""
+    inst = flash_bwd_instance(d)
+    wg = 3 if inst <= 80 else 2
+    rows = PACKED_BQ * wg
+    a_tile = rows // 8 * 2 * (-(-inst // 16)) * 128  # Q-tile layout: K, V or Q, dO
+    kv_tile = PACKED_BK // 8 * (inst // 8 + 1) * 128  # K/V-tile layout, one stage's tile
+    stats = 2 * PACKED_BQ * 4  # a dK/dV stage's lse and delta, fp32
+    dkdv_smem = 2 * a_tile + PACKED_STAGES * (2 * kv_tile + stats)
+    dq_smem = 2 * a_tile + PACKED_STAGES * 2 * kv_tile
+    kv_x, q_x = -(-sk // rows), -(-sq // rows)
+    return {
+        "instance_d": inst, "delta_blocks": -(-b * h * sq * 32 // 128),
+        "grid": (kv_x + q_x, b * h), "threads": 128 * wg,
+        "smem_bytes": max(dkdv_smem, dq_smem), "stages": PACKED_STAGES,
+        "dkdv_blocks_per_head": kv_x, "dkdv_rows": rows, "dkdv_acc_regs": inst,
+        "dq_blocks_per_head": q_x, "dq_rows": rows, "dq_acc_regs": inst // 2,
+        "warpgroups": wg, "blocks": (kv_x + q_x) * b * h,
+        "dkdv_smem_bytes": dkdv_smem, "dq_smem_bytes": dq_smem,
+        "query_tiles": -(-sq // PACKED_BQ), "key_tiles": -(-sk // PACKED_BK),
+        "waves": (kv_x + q_x) * b * h / SM_COUNT,  # one block an SM
+    }
+
+
+def flash_bwd_kernel_plan(b: int, h: int, sq: int, sk: int, d: int) -> dict:
+    """The bf16 backward's launch geometry as the built library reports it
+    (host code of ``csrc/flash_attention_bwd.cu``, no launch), under
+    ``flash_bwd_launch_plan``'s keys."""
+    out = (ctypes.c_int * 13)()
+    lib = _bwd_lib()
+    _raise(lib.c2d_cuda_error_string_bwd,
+           lib.c2d_flash_bwd_plan(b, h, sq, sk, d, ctypes.cast(out, ctypes.c_void_p)),
+           "flash_bwd_plan")
+    (inst, delta_blocks, gx, gy, threads, smem, stages, kv_x, kv_rows, kv_regs,
+     q_x, q_rows, q_regs) = out
+    return {"instance_d": inst, "delta_blocks": delta_blocks, "grid": (gx, gy),
+            "threads": threads, "smem_bytes": smem, "stages": stages,
+            "dkdv_blocks_per_head": kv_x, "dkdv_rows": kv_rows, "dkdv_acc_regs": kv_regs,
+            "dq_blocks_per_head": q_x, "dq_rows": q_rows, "dq_acc_regs": q_regs}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

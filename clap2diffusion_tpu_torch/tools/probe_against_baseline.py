@@ -1,7 +1,8 @@
-"""This checkout's flash forward and GroupNorm kernels against another
-checkout's, on the card.
+"""This checkout's flash forward and backward and GroupNorm kernels against
+another checkout's, on the card.
 
-    python -m clap2diffusion_tpu_torch.tools.probe_against_baseline --baseline DIR
+    python -m clap2diffusion_tpu_torch.tools.probe_against_baseline --baseline DIR \
+        [--parts census,packed,bwd]
 
 DIR is another checkout of the repository, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory; its CUDA sources
@@ -21,6 +22,14 @@ and its ``ops/groupnorm.py`` is imported from its path. Steps:
   4. The head-packed kernel of both checkouts on the same inputs at the
      cases of chip_smoke.py's phase 2c: the same bits, with and without the
      log-sum-exp?
+  5. The flash backward at the three training shapes [4,8,{4096,1024,256},
+     {40,80,160}] (bf16): this checkout's against its plain version
+     (chip_smoke's BWD_TOL) and its launch plan against the built library's,
+     the same bits as the baseline's?, and device time of one call: the
+     baseline's, this checkout's, this checkout's, the baseline's, and
+     autograd through SDPA beside.
+``--parts`` picks steps: ``census`` (1-3), ``packed`` (4), ``bwd`` (5); all
+by default.
 Prints one JSON line per result, with the card's name and power limit.
 """
 
@@ -42,9 +51,11 @@ from clap2diffusion_tpu_torch.diffusion.pipeline import AudioToImagePipeline
 from clap2diffusion_tpu_torch.ops import cuda_build
 from clap2diffusion_tpu_torch.ops import flash_attention as fa
 from clap2diffusion_tpu_torch.ops import groupnorm as gn
-from clap2diffusion_tpu_torch.utils.timing import graph_ms
+from clap2diffusion_tpu_torch.utils.timing import graph_ms, sdpa_backward_device_ms
 
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}  # as chip_smoke.py
+BWD_TOL = (1e-2, 1e-2)  # bf16, atol of max|plain|, as chip_smoke.py
+BWD_SHAPES = [(4, 8, 4096, 40), (4, 8, 1024, 80), (4, 8, 256, 160)]
 RAGGED_FLASH = [((1, 2, 1000, 40), (1, 2, 1000, 40)), ((2, 3, 300, 80), (2, 3, 777, 80)),
                 ((1, 1, 333, 512), (1, 1, 130, 512)), ((1, 2, 130, 8), (1, 2, 65, 8)),
                 ((1, 2, 70, 16), (1, 2, 300, 16)), ((1, 2, 200, 160), (1, 2, 100, 160)),
@@ -88,6 +99,57 @@ def baseline_libs(base: str):
     gn_mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gn_mod)
     return libs, gn_mod
+
+
+def baseline_bwd_lib(base: str):
+    """The baseline's backward library, bound by this checkout's binding."""
+    return fa._bind_bwd(cuda_build.load(
+        "flash_attention_bwd.cu", os.path.join(base, "clap2diffusion_tpu_torch", "csrc")))
+
+
+def bwd_rows(base, gen) -> None:
+    lib = baseline_bwd_lib(base)
+    atol, rtol = BWD_TOL
+    for qs in BWD_SHAPES:
+        q, k, v, do = (torch.randn(qs, device="cuda", generator=gen).bfloat16() for _ in range(4))
+        scale = qs[-1] ** -0.5
+        row = {"probe": "flash_bwd", "q": list(qs)}
+        try:
+            o, lse = fa.flash_attention_fwd(q, k, v, scale, with_lse=True)
+
+            def new():
+                return fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+
+            def old():
+                with mock.patch.object(fa, "_bwd_lib", lambda: lib):
+                    return new()
+
+            got, old_out = new(), old()
+            torch.cuda.synchronize()
+            ref = fa.plain_flash_attention_bwd(q, k, v, o, do, scale)
+            errs, ok = [], True
+            for a, r in zip(got, ref):
+                a, r = a.float(), r.float()
+                err = (a - r).abs()
+                ok = ok and bool(torch.isfinite(a).all()
+                                 and (err <= atol * r.abs().max() + rtol * r.abs()).all())
+                errs.append(err.max().item() / max(r.abs().max().item(), 1e-30))
+            row.update({
+                "rel_err_dq_dk_dv": errs, "ok": ok,
+                "same_bits_as_baseline": all(torch.equal(a, b) for a, b in zip(got, old_out)),
+                "baseline_rel_diff": [(a.float() - b.float()).abs().max().item()
+                                      / max(r.float().abs().max().item(), 1e-30)
+                                      for a, b, r in zip(got, old_out, ref)]})
+            plan = fa.flash_bwd_launch_plan(*qs[:3], qs[2], qs[3])
+            built = fa.flash_bwd_kernel_plan(*qs[:3], qs[2], qs[3])
+            row["plan_ok"] = all(plan[key] == val for key, val in built.items())
+            row.update({key: plan[key] for key in ("grid", "threads", "smem_bytes", "waves")})
+            t = [graph_ms(old), graph_ms(new), graph_ms(new), graph_ms(old)]
+            row.update({"baseline_ms": [t[0], t[3]], "device_ms": [t[1], t[2]],
+                        "sdpa_backward_ms": sdpa_backward_device_ms(q, k, v, do, scale)})
+        except Exception as e:  # report and go on to the next shape
+            row["error"] = repr(e)[:500]
+        log(row)
 
 
 def census(gen):
@@ -205,25 +267,39 @@ def packed_bits(base_packed, gen) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", required=True, help="another checkout of the repository")
+    parser.add_argument("--parts", default="census,packed,bwd",
+                        help="comma-separated: census, packed, bwd")
     args = parser.parse_args()
+    parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("probe_against_baseline: CUDA is not available; this tool needs one GPU")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_build.build_all([*fa.SOURCES, gn.SOURCE])
-    libs, base_gn = baseline_libs(args.baseline)
+    base_csrc = os.path.join(args.baseline, "clap2diffusion_tpu_torch", "csrc")
+    base_sources = (["flash_attention.cu", "packed_flash_attention.cu"]
+                    if parts & {"census", "packed"} else []) + (
+                        ["flash_attention_bwd.cu"] if "bwd" in parts else [])
+    cuda_build.build_all(base_sources, base_csrc)
+    libs, base_gn = (baseline_libs(args.baseline) if parts & {"census", "packed"}
+                     else (None, None))
     for source, text in cuda_build.BUILD_LOGS.items():
         log({"probe": "ptxas", "source": source, "kernels": cuda_build.ptxas_summary(text)})
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = census(gen)
-    log({"probe": "census", "flash": [list(map(list, k[:2])) for k in shapes["flash"]],
-         "group_norm_silu": len(shapes["group_norm_silu"]),
-         "group_norm": len(shapes["group_norm"])})
-    flash_rows([k[:2] for k in shapes["flash"]] + RAGGED_FLASH, libs["flash_attention.cu"], gen)
-    gn_rows([(k, kind) for kind in ("group_norm_silu", "group_norm") for k in shapes[kind]],
-            base_gn, gen)
-    packed_bits(libs["packed_flash_attention.cu"], gen)
+    if "bwd" in parts:
+        bwd_rows(args.baseline, gen)
+    if "census" in parts:
+        shapes = census(gen)
+        log({"probe": "census", "flash": [list(map(list, k[:2])) for k in shapes["flash"]],
+             "group_norm_silu": len(shapes["group_norm_silu"]),
+             "group_norm": len(shapes["group_norm"])})
+        flash_rows([k[:2] for k in shapes["flash"]] + RAGGED_FLASH, libs["flash_attention.cu"],
+                   gen)
+        gn_rows([(k, kind) for kind in ("group_norm_silu", "group_norm") for k in shapes[kind]],
+                base_gn, gen)
+    if "packed" in parts:
+        packed_bits(libs["packed_flash_attention.cu"], gen)
     return 0
 
 
