@@ -60,6 +60,12 @@ Phases (each raises on failure, so the exit code is non-zero):
      entry point driven over one UNet forward's census with counts reset;
      and one full-width UNet forward with C2D_WINOGRAD=1 (the plain-PyTorch
      route) against the direct conv.
+  2e. The VAE encoder (img2img and inpainting): a census of one encode at
+     batch 1 (1 flash, 21 GN+SiLU, 1 GN launches; kept out of phase 2's
+     census, whose sums the records compare), then the flash and GroupNorm
+     kernels against their plain versions at its shapes, bf16 and fp32, the
+     GroupNorm plan against the library's and timed, from a generator of its
+     own; the worst errors fold into the kernels line.
   3. The serving path: 3 requests through ``AudioToImagePipeline.generate``
      (hierarchical, 50-step DDIM, CFG 7.5, 512x512, bf16 weights drawn from
      a seeded torch.Generator, a 10 s 48 kHz synthetic waveform, hash
@@ -70,6 +76,20 @@ Phases (each raises on failure, so the exit code is non-zero):
      requests with the flag set, each with exactly 250 packed, 501 per-head
      flash and 2,279 GN+SiLU launches, interleaved with 2 requests without it
      (751 per-head, no packed launch) for a wall-time comparison.
+  3c. The rest of ``generate`` at full width with phase 3's pipeline,
+     waveform and prompt: ``sonic``; ``dpmpp_2m_karras`` at 20 steps;
+     ``euler_a``; img2img from phase 3's first image at strength 0.6;
+     inpainting (strength 1.0, the left half masked); two-audio mixing;
+     ``seeds=[7, 5]`` at batch 2. Counts are reset before the phase, and
+     each request's wall time and exact launches (flash, GN+SiLU, GN) are
+     checked against GENERATE_REQUESTS. Then: sonic differs from
+     hierarchical; an all-255 mask gives img2img's bits; a lane's initial
+     latents are its seed's solo draw; ``generate_stream(depth=2)`` gives
+     the bits of three ``generate`` calls (timed in turns: calls, stream,
+     stream, calls); the image differences of
+     ``seeds=[5, 5]``'s lanes and of solo ``seeds=[5]`` against lane 1 of
+     ``[7, 5]`` are recorded; and each kernel is checked (untimed) at every
+     shape of the phase that no earlier phase checked.
   4. Reference check: a small configuration (flash and GroupNorm kernels
      on) in fp32 on the card against the same pipeline on the CPU (plain
      versions), under the frozen-golden bounds of tests/test_image_golden.py.
@@ -114,7 +134,7 @@ import torch
 import torch.nn.functional as F
 
 from clap2diffusion_tpu_torch.core import config as C
-from clap2diffusion_tpu_torch.diffusion.pipeline import AudioToImagePipeline
+from clap2diffusion_tpu_torch.diffusion.pipeline import AudioToImagePipeline, RequestDraws
 from clap2diffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 from clap2diffusion_tpu_torch.data.fixtures import make_fixture_dataset
 from clap2diffusion_tpu_torch.ops import cuda_build
@@ -188,6 +208,30 @@ FLASH_BWD_PER_STEP = 14
 TRAIN_STEPS = 16
 STAGE3_STEPS = 2
 TRAIN_REL_TOL = 1e-3  # small fp32 training step: card vs CPU, per leaf (of max|cpu|)
+# Phase 3c: launches (flash, GN+SiLU, GN) per request. A UNet forward makes
+# 15, 45 and 16, the VAE decoder 1, 29 and 1, the encoder (img2img) 1, 21
+# and 1; a batch of 2 makes as many launches as a batch of 1.
+GENERATE_REQUESTS = {
+    "sonic": (dict(model_type="sonic", num_steps=50), (751, 2279, 801)),
+    "dpmpp_2m_karras": (dict(sampler="dpmpp_2m_karras", num_steps=20), (301, 929, 321)),
+    "euler_a": (dict(sampler="euler_a", num_steps=50), (751, 2279, 801)),
+    "img2img": (dict(strength=0.6, num_steps=50), (452, 1400, 482)),  # 30 steps
+    "inpainting": (dict(strength=1.0, num_steps=50), (752, 2300, 802)),
+    "audio_mix": (dict(audio_mix=0.5, num_steps=50), (751, 2279, 801)),
+    "seeds": (dict(seeds=[7, 5], batch=2, num_steps=50), (751, 2279, 801)),
+}
+STREAM_STEPS = 10  # generate_stream against generate: three requests of 10 steps
+
+
+class FedLatents(RequestDraws):
+    """A request's draws with its initial latents given."""
+
+    def __init__(self, device, latents):
+        super().__init__(device, 0)
+        self.fed = latents.to(self.device)
+
+    def latents(self, shape):
+        return self.fed
 
 
 def log(obj):
@@ -236,7 +280,7 @@ def bound_ms(flops, nbytes, dtype):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def flash_case(qs, ks, dtype, gen):
+def flash_case(qs, ks, dtype, gen, timed=True):
     q = torch.randn(qs, device="cuda", generator=gen).to(dtype)
     k = torch.randn(ks, device="cuda", generator=gen).to(dtype)
     v = torch.randn(ks, device="cuda", generator=gen).to(dtype)
@@ -257,6 +301,11 @@ def flash_case(qs, ks, dtype, gen):
     strided = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
     if not torch.equal(fa.flash_attention(*strided, scale), got):
         raise AssertionError(f"{name}: strided [B,S,H,D] inputs give another result")
+    if not timed:
+        row = {"kernel": "flash_attention_fwd", "q": list(qs), "k": list(ks),
+               "dtype": str(dtype)[6:], "max_abs_err": err}
+        log(row)
+        return row
     bms, by = bound_ms(4 * b * h * sq * sk * d, 2 * b * h * (sq + sk) * d * q.element_size(),
                        dtype)
     kernel = lambda: fa.flash_attention(q, k, v, scale)  # noqa: E731
@@ -273,7 +322,7 @@ def flash_case(qs, ks, dtype, gen):
     return row
 
 
-def gn_case(kind, shape, dtype, groups, eps, gen):
+def gn_case(kind, shape, dtype, groups, eps, gen, timed=True):
     silu = kind == "group_norm_silu"
     x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
     c = shape[-1]
@@ -293,6 +342,12 @@ def gn_case(kind, shape, dtype, groups, eps, gen):
     if not torch.equal(fn(x, w, b, groups, eps), got):
         raise AssertionError(f"{name}: two identical launches differ")
     err = check(name, got, gn.plain_group_norm(x, w, b, groups, eps, silu), dtype)
+    if not timed:
+        row = {"kernel": kind, "x": list(shape), "dtype": str(dtype)[6:], "eps": eps,
+               "max_abs_err": err, "grid": plan["grid"], "resident": plan["resident"],
+               "x_reads": plan["x_reads"]}
+        log(row)
+        return row
     nchw = x.permute(0, 3, 1, 2)  # channels_last view: the same memory
     n = x.numel()
     bms, by = bound_ms((9 if silu else 5) * n, (2 * n + 2 * c) * x.element_size(),
@@ -760,6 +815,128 @@ def small_training_reference(card="cuda", gen_seed=5):
             "leaves": len(g_cpu), "launches": n_card}
 
 
+def generate_phase(pipe, wav, text, uncond, first_img, checked, card):
+    """Phase 3c: the rest of ``generate`` at full width (bf16, random
+    weights, phase 3's pipeline, prompt and waveform): each request of
+    GENERATE_REQUESTS timed with its exact launch counts, the properties the
+    JAX tests hold, ``generate_stream`` against ``generate``, then each
+    kernel at every shape of the phase that no earlier phase checked."""
+    size = pipe.cfg.diffusion.image_size
+    lat = size // 8
+    kinds = ("flash_attention", "group_norm_silu", "group_norm")
+    left = np.zeros((size, size), np.uint8)
+    left[:, :size // 2] = 255  # regenerate the left half
+    init = first_img[0]  # phase 3's first image: hierarchical, ddim 50, seed 0
+    extra = {"img2img": dict(init_image=init), "inpainting": dict(init_image=init, mask_image=left),
+             "audio_mix": dict(waveform2=np.ascontiguousarray(waveform(seed=2)[::-1]))}
+    rows, images = [], {}
+
+    def run(name, kw, want):
+        b = kw.get("batch", 1)
+        kw = dict(waveform=wav, text_ids=np.repeat(text, b, 0), uncond_ids=np.repeat(uncond, b, 0),
+                  guidance_scale=7.5, seed=0, **kw)
+        before = counts()
+        t0 = time.perf_counter()
+        img = pipe.generate(**kw)
+        wall = time.perf_counter() - t0
+        after = counts()
+        got = tuple(after[k] - before[k] for k in kinds)
+        if img.shape != (b, size, size, 3) or img.dtype != np.uint8 or \
+                any(im.std() == 0 for im in img):
+            raise AssertionError(f"generate {name}: image {img.shape} {img.dtype} constant or "
+                                 f"of the wrong shape")
+        if got != want:
+            raise AssertionError(f"generate {name}: launches (flash, gn_silu, gn) {got}, "
+                                 f"want {want}")
+        row = {"phase": "generate_request", "request": name, "seconds": wall,
+               "flash_launches": got[0], "group_norm_silu_launches": got[1],
+               "group_norm_launches": got[2], "image_mean": float(img.mean()),
+               "image_std": float(img.std())}
+        log(row)
+        rows.append(row)
+        return img
+
+    reset_counts()
+    for name, (kw, want) in GENERATE_REQUESTS.items():
+        images[name] = run(name, {**kw, **extra.get(name, {})}, want)
+    if not np.abs(images["sonic"].astype(int) - first_img.astype(int)).max():
+        raise AssertionError("sonic gives the hierarchical image of the same seed")
+    kw, want = GENERATE_REQUESTS["img2img"]
+    ones = run("img2img_mask_255", {**kw, "init_image": init,
+                                    "mask_image": np.full((size, size), 255, np.uint8)}, want)
+    if not np.array_equal(ones, images["img2img"]):
+        raise AssertionError("an all-255 mask does not give img2img's bits")
+    kw, want = GENERATE_REQUESTS["seeds"]
+    twin = run("seeds_5_5", {**kw, "seeds": [5, 5]}, want)
+    solo = run("seeds_5", {**kw, "seeds": [5], "batch": 1}, want)
+    # what the card can show bit for bit: a lane's initial latents are its
+    # seed's solo draw, and two lanes of one seed get the same ones
+    lanes = pipe.draws(0, [7, 5]).latents((2, lat, lat, 4))
+    if not (torch.equal(lanes[1], pipe.draws(5).latents((1, lat, lat, 4))[0])
+            and torch.equal(lanes[1], pipe.draws(0, [5]).latents((1, lat, lat, 4))[0])
+            and torch.equal(*pipe.draws(0, [5, 5]).latents((2, lat, lat, 4)))):
+        raise AssertionError("a lane's initial latents are not its seed's solo draw")
+
+    def image_diff(a, b):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return {"max_abs_diff": int(d.max()), "mean_abs_diff": float(d.mean()),
+                "frac_differing": float((d > 0).mean()), "bit_equal": bool(d.max() == 0)}
+
+    # the images, recorded: cuDNN's conv at [4, 32, 32, 640] (CFG batch 4)
+    # gives two equal samples other bits (tools/probe_lane_bits.py), so equal
+    # lanes, and a solo image against its lane at batch 2, need not match
+    twin_lanes = image_diff(twin[0], twin[1])
+    solo_vs_lane = image_diff(solo[0], images["seeds"][1])
+
+    # generate_stream (two in flight) against three generate calls, timed in
+    # turns (calls, stream, stream, calls) so that the host's drift cancels
+    base = dict(waveform=wav, text_ids=text, uncond_ids=uncond, num_steps=STREAM_STEPS)
+    reqs = [dict(seed=s) for s in (11, 12, 13)]
+    one_by_one, t_calls, t_stream, service = None, [], [], []
+    for mode in ("calls", "stream", "stream", "calls"):
+        t0 = time.perf_counter()
+        if mode == "calls":
+            out = [pipe.generate(**base, **r) for r in reqs]
+            t_calls.append(time.perf_counter() - t0)
+        else:
+            timed = list(pipe.generate_stream_timed(reqs, depth=2, **base))
+            t_stream.append(time.perf_counter() - t0)
+            service.append([t for _, t in timed])
+            out = [img for img, _ in timed]
+        one_by_one = one_by_one or out
+        if not all(np.array_equal(a, b) for a, b in zip(one_by_one, out)):
+            raise AssertionError(f"{mode}: generate_stream(depth=2) and generate give other bits")
+    launches = counts()
+    if not all(launches[k] for k in kinds):
+        raise AssertionError(f"phase 3c did not reach every serving kernel: {launches}")
+
+    # the kernels at the phase's shapes that no earlier phase checked (batch 2
+    # through the UNet at CFG batch 4 and through the VAE decoder)
+    seen = {fn.__name__: dict(fn.shapes)
+            for fn in (fa.flash_attention, gn.group_norm_silu, gn.group_norm)}
+    new_gen = torch.Generator(device="cuda").manual_seed(4)
+    errs = {"flash_attention_fwd": 0.0, "group_norm_silu": 0.0, "group_norm": 0.0}
+    fresh = 0
+    for kind, shapes in seen.items():
+        for key in set(shapes) - checked[kind]:
+            fresh += 1
+            if kind == "flash_attention":
+                r = flash_case(key[0], key[1], torch.bfloat16, new_gen, timed=False)
+                errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], r["max_abs_err"])
+            else:
+                r = gn_case(kind, key[0], torch.bfloat16, key[2], key[3], new_gen, timed=False)
+                errs[kind] = max(errs[kind], r["max_abs_err"])
+    log({"phase": "generate_path", "card": card,
+         "wall_s": {r["request"]: r["seconds"] for r in rows},
+         "launches": launches, "seeds_5_5_lanes": twin_lanes,
+         "seeds_5_solo_vs_lane_1_of_7_5": solo_vs_lane,
+         "stream_depth2_s": t_stream, "stream_service_s": service,
+         "three_generate_calls_s": t_calls, "stream_steps": STREAM_STEPS,
+         "shapes_first_checked_here": fresh, "errs": errs,
+         "sm_clock,power_draw,temperature_after": smi("clocks.sm,power.draw,temperature.gpu")})
+    return {"rows": rows, "errs": errs, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -975,11 +1152,48 @@ def main() -> int:
     log({"phase": "winograd_vs_plain", "ok": True, "launches": wino_launches,
          "unet_route_err_of_max_eps": wino_unet_err})
 
+    # -- 2e. the VAE encoder's shapes: GroupNorm and flash vs plain -----------
+    # a census of one encode (img2img's, batch 1), kept out of phase 2's; its
+    # inputs come from a generator of its own, so later phases draw as before
+    enc_gen = torch.Generator(device="cuda").manual_seed(3)
+    reset_counts()
+    with torch.inference_mode():
+        pipe.vae.encode(torch.rand(1, cfg.diffusion.image_size, cfg.diffusion.image_size, 3,
+                                   device="cuda", generator=enc_gen).bfloat16() * 2 - 1)
+    torch.cuda.synchronize()
+    enc_census = {fn.__name__: dict(fn.shapes)
+                  for fn in (fa.flash_attention, gn.group_norm_silu, gn.group_norm)}
+    enc_counts = counts()
+    log({"phase": "encoder_census", "counts": enc_counts,
+         **{k: [list(key[0]) for key in v] for k, v in enc_census.items()}})
+    if (enc_counts["flash_attention"], enc_counts["group_norm_silu"],
+            enc_counts["group_norm"]) != (1, 21, 1):
+        raise AssertionError(f"VAE encoder: launches {enc_counts}, want flash 1, "
+                             f"GN+SiLU 21, GN 1")
+    enc_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for (qs, ks, _) in enc_census["flash_attention"]:
+            r = flash_case(qs, ks, dtype, enc_gen, timed=False)
+            errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], r["max_abs_err"])
+        for kind in ("group_norm_silu", "group_norm"):
+            for (shape, _, groups, eps) in enc_census[kind]:
+                r = gn_case(kind, shape, dtype, groups, eps, enc_gen)
+                enc_rows.append(r)
+                errs[kind] = max(errs[kind], r["max_abs_err"])
+    # every (shape, dtype, ...) key checked so far, for phase 3c
+    checked = {kind: set(rows[row_kind]) | set(enc_census[kind])
+               for kind, row_kind in (("flash_attention", "flash_attention_fwd"),
+                                      ("group_norm_silu", "group_norm_silu"),
+                                      ("group_norm", "group_norm"))}
+    log({"phase": "encoder_vs_plain", "ok": True,
+         "worst_err": {k: errs[k] for k in ("flash_attention_fwd", "group_norm_silu",
+                                            "group_norm")}})
+
     # -- 3. the main path ----------------------------------------------------
     tok = CLIPTokenizer(max_length=cfg.diffusion.clip_text.max_length)
     wav = waveform()
     text, uncond = tok("rain on a tin roof, distant thunder"), tok("")
-    times, per_request = [], []
+    times, per_request, first_img = [], [], None
     torch.cuda.reset_peak_memory_stats()  # the phase's own peak, not the checks' above
     reset_counts()
     for i in range(REQUESTS):
@@ -989,6 +1203,7 @@ def main() -> int:
                             model_type="hierarchical", num_steps=50, guidance_scale=7.5,
                             seed=i)
         times.append(time.perf_counter() - t0)
+        first_img = img if i == 0 else first_img
         req_counts = (fa.flash_attention.launches - before[0],
                       gn.group_norm_silu.launches - before[1])
         per_request.append(req_counts)
@@ -1056,6 +1271,11 @@ def main() -> int:
          "wall_s_route_on": wall[True], "wall_s_route_off": wall[False],
          "unet_route_err_of_max_eps": packed_unet_err, "packed_launches": packed_launches})
 
+    # -- 3c. the rest of generate at full width --------------------------------
+    gen_out = generate_phase(pipe, wav, text, uncond, first_img, checked, card)
+    for kind, err in gen_out["errs"].items():
+        errs[kind] = max(errs[kind], err)
+
     # -- 4. small reference: the kernels in fp32 on the card vs the CPU -------
     small = small_config()
     wav_s = waveform(0.5, seed=1)
@@ -1066,11 +1286,12 @@ def main() -> int:
     towers = ("clap_audio", "clip_text", "hierarchical", "unet", "vae")
     on_card = AudioToImagePipeline(
         small, params={n: getattr(on_cpu, n).state_dict() for n in towers}, device="cuda")
+    for p in (on_card, on_cpu):  # both from the same initial latents
+        p.draws = lambda seed, seeds=None, p=p: FedLatents(p.device, lat_s)
     reset_counts()
-    outs = [p._generate_from_latents(
-        lat_s, wav_s[None], ids, np.zeros_like(ids), num_steps=3, guidance_scale=7.5,
-        norm_target=60.0, temperature=0.5, model_type="hierarchical", batch=1).cpu().numpy()
-        for p in (on_card, on_cpu)]
+    outs = [p.generate(wav_s, ids, np.zeros_like(ids), num_steps=3, guidance_scale=7.5,
+                       norm_target=60.0, temperature=0.5, model_type="hierarchical")
+            for p in (on_card, on_cpu)]
     if not (fa.flash_attention.launches and gn.group_norm_silu.launches):
         raise AssertionError("the small reference run did not reach both kernels")
     diff = np.abs(outs[0].astype(np.int32) - outs[1].astype(np.int32))
@@ -1191,6 +1412,8 @@ def main() -> int:
             "device_ms": per_image(kind, "device_ms"),
             "library_device_ms": per_image(kind, "library_device_ms"),
             "training_launches": train_launches[
+                "flash_attention" if kind == "flash_attention_fwd" else kind],
+            "generate_phase_launches": gen_out["launches"][
                 "flash_attention" if kind == "flash_attention_fwd" else kind],
         })
         if kind == "group_norm_silu":

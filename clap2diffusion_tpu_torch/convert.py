@@ -12,8 +12,8 @@ the reference's conditioning modules), which are the inverse of the JAX
 package's converters. The audio-injection branches have no diffusers name
 and are mapped by hand to the reference's processor names. The audio
 adapter (stage 1 and 3) is carried across under the reference's
-``AudioAdapter`` names when the tree has one; the VAE encoder, which the
-port does not run yet, is dropped unless asked for.
+``AudioAdapter`` names when the tree has one; the VAE's encoder and
+``quant_conv`` (img2img and inpainting) are carried under diffusers' names.
 """
 
 from __future__ import annotations
@@ -144,13 +144,10 @@ def unet_from_flax(p) -> Dict[str, torch.Tensor]:
     return _convert(p, _UNET_RULES)
 
 
-def vae_from_flax(p, encoder: bool = False) -> Dict[str, torch.Tensor]:
-    """The decode side (``decoder.*``, ``post_quant_conv.*``); with
-    ``encoder=True`` also the encoder and ``quant_conv`` under their
-    diffusers names."""
-    keep = dict(p) if encoder else {k: v for k, v in p.items()
-                                    if k in ("decoder", "post_quant_conv")}
-    return _convert(keep, _VAE_RULES)
+def vae_from_flax(p) -> Dict[str, torch.Tensor]:
+    """The whole VAE under diffusers' names: ``decoder.*``,
+    ``post_quant_conv.*``, ``encoder.*`` and ``quant_conv.*``."""
+    return _convert(p, _VAE_RULES)
 
 
 def clip_text_from_flax(p) -> Dict[str, torch.Tensor]:

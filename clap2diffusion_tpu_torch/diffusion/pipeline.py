@@ -1,32 +1,43 @@
 """End-to-end audio+text -> image pipeline (port of
-``clap2diffusion_tpu/diffusion/pipeline.py``, the serving main path).
+``clap2diffusion_tpu/diffusion/pipeline.py``: ``generate`` and its
+streaming forms).
 
 waveform (float, or PCM16 int16 dequantised on the device) -> log-mel ->
-HTSAT CLAP tower -> hierarchical conditioning with Norm-60 -> one batched
-CLIP-text call for the cond and uncond prompts -> DDIM with CFG folded into
-one 2B-batch UNet forward per step -> VAE decode -> uint8.
+HTSAT CLAP tower -> conditioning with Norm-60 -> one batched CLIP-text call
+for the cond and uncond prompts -> a sampler with CFG folded into one
+2B-batch UNet forward per step -> VAE decode -> uint8.
+
+Model types: ``hierarchical`` (routed early/mid/late injection and the CLIP
+text context), ``audio_tokens`` (the 77 hierarchical tokens in place of the
+text context), ``sonic`` (the audio adapter's tokens, Norm-60, at every
+level) and ``baseline`` (text only). Samplers: ``ddim``, ``dpmpp_2m``,
+``dpmpp_2m_karras`` and ``euler_a`` (``diffusion/ddim.py``). Beyond them,
+as in the JAX package: SDEdit img2img (``init_image``, ``strength``),
+inpainting (``mask_image``), two-audio mixing (``waveform2``,
+``audio_mix``), per-lane seeds (``seeds``) and ``generate_stream``.
 
 Numerics follow the JAX program with bf16 parameters: the CLAP tower and
-the conditioning stack compute in fp32 (the JAX package promotes their bf16
-weights against the fp32 log-mel), the CLIP text encoder, the UNet and the
-VAE compute in the parameter type.
+the conditioning stack (hierarchical, adapter) compute in fp32 (the JAX
+package promotes their bf16 weights against the fp32 CLAP input), the CLIP
+text encoder, the UNet and the VAE compute in the parameter type.
 
-Initial latents: the JAX program draws them with threefry from ``seed``,
-which torch cannot reproduce. ``generate(seed=s)`` draws them here with
-``torch.randn(..., generator=torch.Generator(device).manual_seed(s))`` on
-the pipeline's device, in fp32, then casts to the compute type.
-``_generate_from_latents`` is everything after that draw, so a caller (or
-a test) can feed any latents.
-
-Model types: ``hierarchical``, ``audio_tokens`` and ``baseline``; sampler
-``ddim``. The ``sonic`` type, other samplers, img2img, inpainting,
-two-audio mixing and per-lane seeds are not ported yet.
+Random draws: the JAX program draws with threefry from ``key(seed)``,
+which torch cannot reproduce. Every draw of a request here goes through
+one ``RequestDraws`` that ``AudioToImagePipeline.draws`` makes (a test
+replaces that method to feed the JAX draws): the initial latents from
+``torch.Generator(device).manual_seed(seed)``, as before, and the VAE's
+sample noise, the img2img noise and the stochastic sampler's noise each
+from a generator of its own (see ``stream_seed``); with ``seeds``, each
+lane's latents and sampler noise from that lane's seed alone.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+import os
+import time
+from collections import deque
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -34,10 +45,22 @@ from torch import nn
 
 from clap2diffusion_tpu_torch.core.config import Config
 from clap2diffusion_tpu_torch.core.device import resolve_device
-from clap2diffusion_tpu_torch.diffusion.ddim import SAMPLERS, NoiseSchedule, cfg_eps_fn
-from clap2diffusion_tpu_torch.models.clap.frontend import log_mel_spectrogram
+from clap2diffusion_tpu_torch.diffusion.ddim import (
+    SAMPLERS,
+    NoiseSchedule,
+    cfg_eps_fn,
+    ddim_timesteps,
+    generator_draw,
+    img2img_timesteps,
+)
+from clap2diffusion_tpu_torch.models.clap.frontend import (
+    fit_to_length,
+    log_mel_spectrogram,
+    prepare_waveform,
+)
 from clap2diffusion_tpu_torch.models.clap.htsat import ClapAudioTower
 from clap2diffusion_tpu_torch.models.clip_text import CLIPTextEncoder
+from clap2diffusion_tpu_torch.models.condition.adapter import AudioAdapter
 from clap2diffusion_tpu_torch.models.condition.hierarchical import (
     ROUTING_INIT,
     HierarchicalAudioEncoder,
@@ -45,10 +68,15 @@ from clap2diffusion_tpu_torch.models.condition.hierarchical import (
 from clap2diffusion_tpu_torch.models.unet import UNet2DCondition
 from clap2diffusion_tpu_torch.models.vae import AutoencoderKL
 from clap2diffusion_tpu_torch.ops.token_norm import rescale_to_norm
+from clap2diffusion_tpu_torch.utils.audio_io import peak_normalize, read_wav, read_wav_pcm16
 
-MODEL_TYPES = ("hierarchical", "audio_tokens", "baseline")
+MODEL_TYPES = ("hierarchical", "audio_tokens", "sonic", "baseline")
 # towers that compute in fp32 whatever the parameter type (see module doc)
-FP32_TOWERS = ("clap_audio", "hierarchical")
+FP32_TOWERS = ("clap_audio", "hierarchical", "adapter")
+LEVELS = ("early", "mid", "late")
+# the tags of a request's streams (stream_seed); the sampler's is the JAX
+# program's fold_in tag
+SAMPLER_TAG, VAE_TAG, IMG2IMG_TAG = 0x5A, 1, 2
 
 
 def build_modules(cfg: Config) -> Dict[str, nn.Module]:
@@ -58,6 +86,9 @@ def build_modules(cfg: Config) -> Dict[str, nn.Module]:
         "hierarchical": HierarchicalAudioEncoder(cfg.condition),
         "unet": UNet2DCondition(cfg.diffusion.unet),
         "vae": AutoencoderKL(cfg.diffusion.vae),
+        # last: random_init_ draws the towers from one generator in this
+        # order, so a seed gives the other towers what it gave before
+        "adapter": AudioAdapter(cfg.condition),
     }
 
 
@@ -100,6 +131,8 @@ def random_init_(module: nn.Module, generator: torch.Generator,
     return module
 
 
+
+
 def _dequantize_pcm16(waveform: torch.Tensor) -> torch.Tensor:
     """int16 PCM -> float, divided by its own peak (float input passes
     through), as the JAX program does on the device."""
@@ -109,14 +142,118 @@ def _dequantize_pcm16(waveform: torch.Tensor) -> torch.Tensor:
     return wf / torch.clamp(wf.abs().amax(dim=-1, keepdim=True), min=1.0)
 
 
+def stream_seed(seed: int, tag: int) -> int:
+    """The seed of a request's ``tag`` stream: a 63-bit mix of (seed, tag),
+    apart from ``seed`` itself (the initial latents' stream) and from the
+    other tags' streams, as the JAX program keeps its streams apart with
+    ``split`` and ``fold_in``."""
+    return (int(seed) * 0x9E3779B97F4A7C15 + int(tag) * 0xBF58476D1CE4E5B9) % (1 << 63)
+
+
+class RequestDraws:
+    """Every random draw of one request, fp32 standard normals on
+    ``device``, each from its own ``torch.Generator``:
+
+    - ``latents(shape)``: the initial latents, from ``seed`` (with
+      ``seeds``: lane i's [h, w, 4] from ``seeds[i]``, so that an image's
+      noise is the same whatever batch it runs in);
+    - ``vae(shape)``: the VAE posterior sample of img2img's init latent;
+    - ``img2img(shape)``: the noise that takes the init latent to the first
+      timestep of img2img's tail (and that inpainting re-applies);
+    - ``sampler()``: the stochastic sampler's draw callable ``(i, shape)``,
+      per lane with ``seeds``.
+    """
+
+    def __init__(self, device, seed: int, seeds: Optional[Iterable[int]] = None):
+        self.device = torch.device(device)
+        self.seed = int(seed)
+        self.seeds = None if seeds is None else [int(s) for s in seeds]
+
+    def _gen(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _randn(self, shape, seed: int) -> torch.Tensor:
+        return torch.randn(shape, generator=self._gen(seed), device=self.device,
+                           dtype=torch.float32)
+
+    def latents(self, shape) -> torch.Tensor:
+        if self.seeds is None:
+            return self._randn(shape, self.seed)
+        return torch.stack([self._randn(shape[1:], s) for s in self.seeds])
+
+    def vae(self, shape) -> torch.Tensor:
+        return self._randn(shape, stream_seed(self.seed, VAE_TAG))
+
+    def img2img(self, shape) -> torch.Tensor:
+        return self._randn(shape, stream_seed(self.seed, IMG2IMG_TAG))
+
+    def sampler(self) -> Callable[[int, tuple], torch.Tensor]:
+        if self.seeds is None:
+            return generator_draw(self._gen(stream_seed(self.seed, SAMPLER_TAG)))
+        return generator_draw([self._gen(stream_seed(s, SAMPLER_TAG)) for s in self.seeds])
+
+
+def _prep_wav(w) -> Optional[np.ndarray]:
+    """A waveform argument as [B, samples]; int16 rides through (the PCM16
+    path), anything else becomes float32."""
+    if w is None:
+        return None
+    w = np.asarray(w)
+    if w.dtype != np.int16:
+        w = w.astype(np.float32)
+    return w[None] if w.ndim == 1 else w
+
+
+def _latent_mask(mask_image, size: int) -> np.ndarray:
+    """A mask image [H, W] or [B, H, W] (nonzero = regenerate) -> the
+    latent-resolution soft mask [B, H/8, W/8, 1] fp32: absolute
+    normalisation (uint8 / 255, bool as is, float clipped to [0, 1]), so a
+    pixel's meaning does not depend on the rest of the mask, then the mean
+    of each 8x8 block."""
+    m = np.asarray(mask_image)
+    if m.shape[-2:] != (size, size):
+        raise ValueError(f"mask_image must be {size}x{size}, got {m.shape[-2:]}")
+    if m.ndim == 2:
+        m = m[None]
+    if m.dtype == np.uint8:
+        m = m.astype(np.float32) / 255.0
+    elif m.dtype == np.bool_:
+        m = m.astype(np.float32)
+    else:
+        m = np.clip(m.astype(np.float32), 0.0, 1.0)
+    lat = size // 8
+    m = m.reshape(m.shape[0], lat, 8, lat, 8).mean(axis=(2, 4))
+    return m[..., None].astype(np.float32)
+
+
+def _luma(rgb: np.ndarray) -> np.ndarray:
+    """PIL's RGB -> L conversion (ITU-R 601-2 luma), in its integer form."""
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def _image_without_pil(arr: np.ndarray, size: int, mask: bool) -> Optional[np.ndarray]:
+    """``load_init_image`` of a uint8 array already at ``size``: RGB as is
+    (grey replicated, alpha dropped), a mask as L. None where PIL is needed."""
+    if arr.shape[:2] != (size, size) or arr.ndim not in (2, 3):
+        return None
+    if arr.ndim == 3 and arr.shape[2] not in (3, 4):
+        return None
+    if mask:
+        return arr if arr.ndim == 2 else _luma(arr)
+    return np.repeat(arr[..., None], 3, axis=-1) if arr.ndim == 2 else arr[..., :3].copy()
+
+
 class AudioToImagePipeline:
     """Host-facing pipeline: ``generate(...)`` -> uint8 images [B, H, W, 3].
 
     ``params`` is the dict ``convert.from_flax`` returns (per-tower state
-    dicts); its UNet's type is the compute type. ``params=None`` initialises
-    the whole stack at random from ``seed`` with a ``torch.Generator`` on
-    the device, in ``dtype``. ``device=None`` means CUDA and raises when
-    CUDA is missing; pass ``device="cpu"`` to run on the CPU."""
+    dicts); its UNet's type is the compute type. Without an ``"adapter"``
+    entry the pipeline has no adapter, and ``model_type="sonic"`` raises.
+    ``params=None`` initialises the whole stack at random from ``seed`` with
+    a ``torch.Generator`` on the device, in ``dtype``. ``device=None`` means
+    CUDA and raises when CUDA is missing; pass ``device="cpu"`` to run on
+    the CPU."""
 
     def __init__(self, cfg: Config, params: Optional[Dict] = None, seed: int = 0,
                  device=None, dtype: torch.dtype = torch.float32):
@@ -127,6 +264,8 @@ class AudioToImagePipeline:
         self.compute_dtype = dtype
         with torch.device("meta"):
             mods = build_modules(cfg)
+        if params is not None and "adapter" not in params:
+            del mods["adapter"]
         gen = torch.Generator(device=self.device).manual_seed(seed)
         for name, m in mods.items():
             m.to_empty(device=self.device)
@@ -141,9 +280,64 @@ class AudioToImagePipeline:
         self.clap_audio = mods["clap_audio"]
         self.clip_text = mods["clip_text"]
         self.hierarchical = mods["hierarchical"]
+        self.adapter = mods.get("adapter")
         self.unet = mods["unet"]
         self.vae = mods["vae"]
         self.schedule = NoiseSchedule.create(cfg.diffusion.scheduler, device=self.device)
+
+    # -- host-side frontends --------------------------------------------------
+
+    def load_audio(self, path: str) -> np.ndarray:
+        """A WAV file -> the waveform ``generate`` takes. A mono PCM16 WAV at
+        the CLAP rate stays int16 (dequantised on the device), when cropping
+        keeps its peak; anything else is peak-normalised as a whole, then
+        mixed to mono, resampled and fitted to length. Other containers
+        (FLAC, mp3, ...) are not ported."""
+        fe = self.cfg.clap.frontend
+        pcm = read_wav_pcm16(path)
+        if pcm is not None and pcm[1] == fe.sample_rate:
+            x, n = pcm[0], fe.num_samples
+            if len(x) <= n or np.abs(x[:n]).max() == np.abs(x).max():
+                return fit_to_length(x, n)
+        with open(path, "rb") as f:
+            if f.read(4) != b"RIFF":
+                raise NotImplementedError(
+                    f"{path}: only WAV is read by the port; FLAC, mp3 and other containers "
+                    "wait for the native loader (ROADMAP Queue 1, item 8)")
+        wav, sr = read_wav(path)
+        return prepare_waveform(peak_normalize(wav), sr, fe)
+
+    def load_init_image(self, source, mask: bool = False) -> np.ndarray:
+        """An init image (or inpainting mask) from a path, file-like, PIL
+        image or array -> uint8 [S, S, 3] (a mask: [S, S], grey) at the
+        configured size. Float arrays are clipped to [0, 1] and rounded.
+        PIL (Pillow) is imported only for files, PIL images and resizes
+        (LANCZOS, masks NEAREST); a uint8 array already at the size needs
+        none."""
+        size = self.cfg.diffusion.image_size
+        is_file = isinstance(source, (str, bytes, os.PathLike)) or hasattr(source, "read")
+        if not is_file and not hasattr(source, "convert"):
+            arr = np.asarray(source)
+            if np.issubdtype(arr.dtype, np.floating):
+                arr = (np.clip(arr, 0.0, 1.0) * 255.0).round()
+            arr = arr.astype(np.uint8)
+            out = _image_without_pil(arr, size, mask)
+            if out is not None:
+                return out
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError("load_init_image needs PIL (Pillow) to read a file or a PIL "
+                              f"image, or to resize to {size}x{size}") from e
+        if is_file:
+            img = Image.open(source)
+        elif isinstance(source, Image.Image):
+            img = source
+        else:
+            img = Image.fromarray(arr)
+        if mask:
+            return np.asarray(img.convert("L").resize((size, size), Image.NEAREST), np.uint8)
+        return np.asarray(img.convert("RGB").resize((size, size), Image.LANCZOS), np.uint8)
 
     # -- stages ---------------------------------------------------------------
 
@@ -164,50 +358,55 @@ class AudioToImagePipeline:
         """CLAP [B,512] -> (tokens77, routed audio dict) per model type."""
         if model_type == "baseline":
             return None, None
+        if model_type == "sonic":
+            tokens = rescale_to_norm(self.adapter(clap_emb), norm_target)
+            return None, {lvl: tokens for lvl in LEVELS}
         tokens77, info = self.hierarchical(clap_emb, temperature, return_all=True)
         routed = {lvl: rescale_to_norm(t, norm_target) for lvl, t in info["routed"].items()}
         return rescale_to_norm(tokens77, norm_target), routed
 
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the pipeline's device, without waiting for the
+        card: on CUDA through pinned memory and an asynchronous copy (a copy
+        from pageable memory synchronises the stream, which would stall
+        the requests ``generate_stream`` keeps in flight)."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def draws(self, seed: int, seeds=None) -> RequestDraws:
+        """The request's random draws (see ``RequestDraws``); the one place
+        a caller or a test replaces them."""
+        return RequestDraws(self.device, seed, seeds)
+
     # -- generation -----------------------------------------------------------
 
-    def _prepare(self, waveform, text_ids, uncond_ids, batch: int, model_type: str,
-                 sampler: str, guidance_rescale: float):
-        if model_type not in MODEL_TYPES:
-            raise ValueError(f"model_type {model_type!r} is not ported; available: "
-                             f"{MODEL_TYPES}")
-        if sampler not in SAMPLERS:
-            raise ValueError(f"unknown sampler {sampler!r}; available: {sorted(SAMPLERS)}")
-        if not 0.0 <= float(guidance_rescale) <= 1.0:
-            raise ValueError(f"guidance_rescale must be in [0, 1], got {guidance_rescale}")
-        max_len = self.cfg.diffusion.clip_text.max_length
-        if text_ids is None:
-            text_ids = np.zeros((batch, max_len), np.int32)
-        if uncond_ids is None:
-            uncond_ids = np.zeros((batch, max_len), np.int32)
-        wav = None
-        if waveform is not None:
-            wav = np.asarray(waveform)
-            if wav.dtype != np.int16:
-                wav = wav.astype(np.float32)
-            wav = wav[None] if wav.ndim == 1 else wav
-        return wav, np.asarray(text_ids, np.int32), np.asarray(uncond_ids, np.int32)
-
     @torch.inference_mode()
-    def _generate_from_latents(self, latents: torch.Tensor, waveform, text_ids, uncond_ids,
-                               *, num_steps: int, guidance_scale: float, norm_target: float,
-                               temperature: float, model_type: str, batch: int,
-                               sampler: str = "ddim",
-                               guidance_rescale: float = 0.0) -> torch.Tensor:
-        """Everything after the initial-latent draw; returns uint8 images
-        [B, H, W, 3] on the device."""
+    def _generate(self, draws: RequestDraws, wav, wav2, text_ids, uncond_ids, *,
+                  num_steps: int, guidance_scale: float, model_type: str, batch: int,
+                  norm_target: float, temperature: float, sampler: str, init_steps: int,
+                  init: Optional[np.ndarray], audio_mix: float, mask: Optional[np.ndarray],
+                  guidance_rescale: float) -> torch.Tensor:
+        """The JAX program ``_generate_jit``, step by step; returns uint8
+        images [B, H, W, 3] on the device, unsynchronised."""
         dev = self.device
         clap_emb = None
-        if waveform is not None:
-            wf = _dequantize_pcm16(torch.as_tensor(waveform, device=dev))
+        if wav is not None:
+            wf = _dequantize_pcm16(self._upload(wav))
+            if wav2 is not None:
+                # both sources in one CLAP call, then the blend, renormalised
+                # (CLAP embeddings lie on the unit sphere)
+                wf = torch.cat([wf, _dequantize_pcm16(self._upload(wav2))])
             clap_emb = self.clap_audio(log_mel_spectrogram(wf, self.cfg.clap.frontend))
+            if wav2 is not None:
+                n = clap_emb.shape[0] // 2
+                mixed = audio_mix * clap_emb[:n] + (1.0 - audio_mix) * clap_emb[n:]
+                clap_emb = mixed / torch.clamp(
+                    torch.linalg.vector_norm(mixed, dim=-1, keepdim=True), min=1e-8)
             if batch > 1 and clap_emb.shape[0] == 1:
                 clap_emb = clap_emb.expand(batch, -1)
-        ids = torch.as_tensor(np.concatenate([text_ids, uncond_ids], axis=0), device=dev)
+        ids = self._upload(np.concatenate([text_ids, uncond_ids], axis=0))
         ehs_cond, ehs_uncond = self.clip_text(ids).chunk(2, dim=0)
         tokens77, routed = ((None, None) if clap_emb is None else
                             self._condition(clap_emb, model_type, norm_target, temperature))
@@ -217,40 +416,170 @@ class AudioToImagePipeline:
         eps_fn = cfg_eps_fn(self.unet, ehs_cond, ehs_uncond, guidance_scale,
                             audio_cond=routed, audio_uncond=routed,
                             guidance_rescale=guidance_rescale)
-        latents = SAMPLERS[sampler](eps_fn, self.schedule, latents.to(dev, self.compute_dtype),
-                                    num_steps)
+        sample = SAMPLERS[sampler]
+        if init_steps > 0:
+            # SDEdit img2img: encode the init image, noise it to the first
+            # timestep of the grid's tail, denoise only that tail
+            ts = ddim_timesteps(num_steps, self.schedule.num_train_timesteps)[
+                num_steps - init_steps:]
+            x = (self._upload(init).float() / 127.5 - 1.0).to(self.compute_dtype)
+            if batch > 1 and x.shape[0] == 1:
+                x = x.expand(batch, *x.shape[1:])
+            x0 = self.vae.sample_latent(x, draws.vae)
+            noise = draws.img2img(tuple(x0.shape)).to(x0.dtype)
+            t0 = torch.full((x0.shape[0],), int(ts[0]), dtype=torch.long, device=dev)
+            latents = self.schedule.add_noise(x0, noise, t0)
+            blend_fn = None
+            if mask is not None:
+                # inpainting: after every update, the known (mask 0) region
+                # is the init latent noised to the step's level (x0 itself
+                # at the final step)
+                m = self._upload(mask)
+
+                def blend_fn(lat: torch.Tensor, t_prev: int) -> torch.Tensor:
+                    known = x0
+                    if t_prev >= 0:
+                        tp = torch.full((x0.shape[0],), t_prev, dtype=torch.long, device=dev)
+                        known = self.schedule.add_noise(x0, noise, tp)
+                    return (m * lat.float() + (1.0 - m) * known.float()).to(lat.dtype)
+
+            latents = sample(eps_fn, self.schedule, latents, num_steps, timesteps=ts,
+                             blend_fn=blend_fn, rng=draws.sampler())
+        else:
+            lat = self.cfg.diffusion.image_size // 8
+            latents = draws.latents((batch, lat, lat, 4)).to(self.compute_dtype)
+            latents = sample(eps_fn, self.schedule, latents, num_steps, rng=draws.sampler())
         img = self.vae.decode_latent(latents)
         return torch.clamp((img + 1.0) * 127.5, 0, 255).to(torch.uint8)
 
-    def draw_latents(self, seed: int, batch: int) -> torch.Tensor:
-        """The port's seed -> initial noise mapping (see the module doc)."""
-        lat = self.cfg.diffusion.image_size // 8
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        noise = torch.randn((batch, lat, lat, 4), generator=gen, device=self.device,
-                            dtype=torch.float32)
-        return noise.to(self.compute_dtype)
+    def generate(self, *args, **kw) -> np.ndarray:
+        """Generate images [B, H, W, 3] uint8 (blocking); the arguments of
+        ``_dispatch_generate``. Defaults: 50 steps, CFG 7.5, Norm-60, as in
+        the JAX package."""
+        return self._dispatch_generate(*args, **kw).cpu().numpy()
 
-    def generate(self, waveform: Optional[np.ndarray] = None,
-                 text_ids: Optional[np.ndarray] = None,
-                 uncond_ids: Optional[np.ndarray] = None, *,
-                 num_steps: Optional[int] = None, guidance_scale: Optional[float] = None,
-                 norm_target: Optional[float] = None, temperature: float = 0.5,
-                 model_type: str = "hierarchical", seed: int = 0, batch: int = 1,
-                 sampler: Optional[str] = None,
-                 guidance_rescale: float = 0.0) -> np.ndarray:
-        """Generate images [B, H, W, 3] uint8 (blocking). Defaults: 50
-        steps, CFG 7.5, Norm-60, as in the JAX package."""
+    def _dispatch_generate(
+        self,
+        waveform: Optional[np.ndarray] = None,
+        text_ids: Optional[np.ndarray] = None,
+        uncond_ids: Optional[np.ndarray] = None,
+        *,
+        num_steps: Optional[int] = None,
+        guidance_scale: Optional[float] = None,
+        norm_target: Optional[float] = None,
+        temperature: float = 0.5,
+        model_type: str = "hierarchical",
+        seed: int = 0,
+        batch: int = 1,
+        sampler: Optional[str] = None,
+        init_image: Optional[np.ndarray] = None,
+        strength: float = 0.8,
+        waveform2: Optional[np.ndarray] = None,
+        audio_mix: float = 0.5,
+        mask_image: Optional[np.ndarray] = None,
+        seeds: Optional[np.ndarray] = None,
+        guidance_rescale: float = 0.0,
+    ) -> torch.Tensor:
+        """Check and prepare the arguments, then enqueue the request;
+        returns the uint8 images on the device without synchronising.
+
+        ``seeds`` (int [batch]) draws each lane's initial latents and
+        sampler noise from its own seed (not with ``init_image``).
+        ``init_image`` (uint8 [H, W, 3] or [B, H, W, 3]) with ``strength``
+        runs SDEdit img2img over the last ``round(steps * strength)``
+        timesteps; ``mask_image`` (uint8 [H, W], nonzero = regenerate)
+        makes it inpainting (``strength=1.0`` for pure inpainting);
+        ``waveform2`` with ``audio_mix`` blends two sources' CLAP
+        embeddings (``audio_mix`` is the first one's weight)."""
         sch = self.cfg.diffusion.scheduler
         sampler = sampler or sch.sampler
-        wav, tids, uids = self._prepare(waveform, text_ids, uncond_ids, batch, model_type,
-                                        sampler, guidance_rescale)
-        img = self._generate_from_latents(
-            self.draw_latents(seed, batch), wav, tids, uids,
-            num_steps=num_steps or sch.num_inference_steps,
-            guidance_scale=sch.guidance_scale if guidance_scale is None else guidance_scale,
-            norm_target=(self.cfg.condition.audio_norm_target if norm_target is None
-                         else norm_target),
-            temperature=temperature, model_type=model_type, batch=batch, sampler=sampler,
-            guidance_rescale=guidance_rescale,
-        )
-        return img.cpu().numpy()
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}; available: {sorted(SAMPLERS)}")
+        if model_type not in MODEL_TYPES:
+            raise ValueError(f"unknown model_type {model_type!r}; available: {MODEL_TYPES}")
+        if model_type == "sonic" and self.adapter is None:
+            raise ValueError("model_type='sonic' needs the audio adapter, and params has no "
+                             "'adapter' (train stage 1 and merge_stage_params(..., stage=1))")
+        num_steps = num_steps or sch.num_inference_steps
+        guidance_scale = sch.guidance_scale if guidance_scale is None else guidance_scale
+        norm_target = (self.cfg.condition.audio_norm_target if norm_target is None
+                       else norm_target)
+        max_len = self.cfg.diffusion.clip_text.max_length
+        if text_ids is None:
+            text_ids = np.zeros((batch, max_len), np.int32)
+        if uncond_ids is None:
+            uncond_ids = np.zeros((batch, max_len), np.int32)
+
+        wav, wav2 = _prep_wav(waveform), _prep_wav(waveform2)
+        if wav2 is not None and wav is None:
+            raise ValueError("waveform2 requires waveform")
+        if wav2 is not None and wav2.shape[0] != wav.shape[0]:
+            # the CLAP output is split in equal halves: unequal batches
+            # would blend the wrong rows
+            raise ValueError(f"waveform2 batch {wav2.shape[0]} must match waveform "
+                             f"batch {wav.shape[0]}")
+        if mask_image is not None and init_image is None:
+            raise ValueError("mask_image requires init_image")
+        if not 0.0 <= float(guidance_rescale) <= 1.0:
+            raise ValueError(f"guidance_rescale must be in [0, 1], got {guidance_rescale}")
+        if seeds is not None:
+            if init_image is not None:
+                raise ValueError("per-lane seeds are unsupported with "
+                                 "init_image (img2img uses the scalar seed)")
+            seeds = np.asarray(seeds, np.int32).reshape(-1)
+            if seeds.shape[0] != batch:
+                raise ValueError(f"seeds has {seeds.shape[0]} entries for batch {batch}")
+        init_steps, init, mask = 0, None, None
+        if init_image is not None:
+            # validates strength and fixes the tail's length
+            init_steps = int(img2img_timesteps(num_steps, strength,
+                                               self.schedule.num_train_timesteps).shape[0])
+            init = np.asarray(init_image)
+            if init.dtype != np.uint8:
+                # a uint8 cast would truncate a float [0, 1] image to black
+                raise ValueError(f"init_image must be uint8 (got {init.dtype}); use "
+                                 "pipeline.load_init_image() to convert")
+            if init.ndim == 3:
+                init = init[None]
+            size = self.cfg.diffusion.image_size
+            if init.shape[1:3] != (size, size):
+                raise ValueError(f"init_image must be {size}x{size}, got {init.shape[1:3]}")
+            if mask_image is not None:
+                mask = _latent_mask(mask_image, size)
+
+        return self._generate(
+            self.draws(seed, seeds), wav, wav2, np.asarray(text_ids, np.int32),
+            np.asarray(uncond_ids, np.int32), num_steps=num_steps,
+            guidance_scale=float(guidance_scale), model_type=model_type, batch=batch,
+            norm_target=float(norm_target), temperature=float(temperature), sampler=sampler,
+            init_steps=init_steps, init=init, audio_mix=float(np.float32(audio_mix)),
+            mask=mask, guidance_rescale=float(guidance_rescale))
+
+    def generate_stream(self, requests, *, depth: int = 2, **shared):
+        """Pipelined generation over an iterable of per-image ``generate``
+        kwarg dicts (each merged over ``shared``); yields uint8 images in
+        order. ``depth`` requests are in flight: the host enqueues the next
+        request's work while the card runs the one before, and fetches an
+        image only when it must."""
+        for img, _ in self.generate_stream_timed(requests, depth=depth, **shared):
+            yield img
+
+    def generate_stream_timed(self, requests, *, depth: int = 2, **shared):
+        """``generate_stream`` that also yields each request's service time:
+        ``(image, seconds)`` from its dispatch to its fetch, queueing behind
+        the requests in flight included. The gaps between yields measure
+        throughput, not latency."""
+        in_flight: deque = deque()
+
+        def drain():
+            t_dispatch, out = in_flight.popleft()
+            img = out.cpu().numpy()  # waits for the card
+            return img, time.perf_counter() - t_dispatch
+
+        for req in requests:
+            in_flight.append((time.perf_counter(),
+                              self._dispatch_generate(**dict(shared, **req))))
+            if len(in_flight) >= max(1, depth):
+                yield drain()
+        while in_flight:
+            yield drain()

@@ -10,8 +10,10 @@ names are the reference's ``AudioAdapter`` names, as
 ``models/condition/convert.py::convert_audio_adapter`` reads them. Dropout
 (0.1) after the KV MLP's GELU and after each self-attention output is
 active only with ``deterministic=False`` and draws from the caller's
-``generator``. The gated cross-attention layer of the ``sonic`` model type
-is not ported yet.
+``generator``. The pipeline's ``sonic`` model type injects its tokens
+(Norm-60) at every level. The reference's gated cross-attention layer
+(``GatedAudioCrossAttention``), which only the JAX package's checkpoint
+converters and exporter reach, is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,19 +1,28 @@
-"""SD v1.5 AutoencoderKL decoder (port of the decode half of
-``clap2diffusion_tpu/models/vae.py``), NHWC throughout.
+"""SD v1.5 AutoencoderKL (port of ``clap2diffusion_tpu/models/vae.py``),
+NHWC throughout.
 
-Parameter names are diffusers' ``AutoencoderKL`` names under ``decoder.``
-and ``post_quant_conv``. The encoder (img2img, inpainting, latent
-precompute) is not ported yet.
+``decode_latent`` is the last stage of every request; ``encode`` and
+``sample_latent`` serve img2img and inpainting (and, later, latent
+precompute). Parameter names are diffusers' ``AutoencoderKL`` names:
+``decoder.*``, ``post_quant_conv.*``, ``encoder.*`` and ``quant_conv.*``,
+registered in that order, so that ``random_init_`` draws the decoder's
+weights before the encoder's and a seed gives the decoder it always gave.
+The sampling noise of ``sample_latent`` comes from the caller's draw
+callable, never from the global RNG.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Tuple
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from clap2diffusion_tpu_torch.core.config import VAEConfig
 from clap2diffusion_tpu_torch.models.layers import (
     Conv1x1,
+    Conv2d,
     GroupNorm,
     conv3x3,
     upsample_nearest2x,
@@ -85,11 +94,51 @@ class _UpBlock(nn.Module):
 
 
 class _Conv(nn.Module):
-    """Holds a 3x3 conv under the name ``conv`` (diffusers' Upsample2D)."""
+    """Holds a 3x3 conv under the name ``conv`` (diffusers' Upsample2D and
+    Downsample2D)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, stride: int = 1, padding: int = 1):
         super().__init__()
-        self.conv = conv3x3(channels, channels)
+        self.conv = Conv2d(channels, channels, 3, stride=stride, padding=padding)
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, layers: int, groups: int, downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [VAEResnetBlock(cin if j == 0 else cout, cout, groups) for j in range(layers)]
+        )
+        if downsample:
+            self.downsamplers = nn.ModuleList([_Conv(cout, stride=2, padding=0)])
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        for res in self.resnets:
+            h = res(h)
+        if hasattr(self, "downsamplers"):
+            # diffusers' asymmetric padding: one row and column after, none
+            # before (not the UNet's pad of 1 on both sides), then VALID
+            h = self.downsamplers[0].conv(F.pad(h, (0, 0, 0, 1, 0, 1)))
+        return h
+
+
+class VAEEncoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        ch, g = cfg.block_out_channels, cfg.norm_num_groups
+        self.conv_in = conv3x3(cfg.in_channels, ch[0])
+        self.down_blocks = nn.ModuleList([
+            _DownBlock(ch[max(i - 1, 0)], c, cfg.layers_per_block, g, i < len(ch) - 1)
+            for i, c in enumerate(ch)
+        ])
+        self.mid_block = VAEMidBlock(ch[-1], g)
+        self.conv_norm_out = GroupNorm(ch[-1], g, 1e-6, silu=True)
+        self.conv_out = conv3x3(ch[-1], 2 * cfg.latent_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x)
+        for blk in self.down_blocks:
+            h = blk(h)
+        return self.conv_out(self.conv_norm_out(self.mid_block(h)))
 
 
 class VAEDecoder(nn.Module):
@@ -114,14 +163,38 @@ class VAEDecoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The decode side of SD's VAE: ``decode_latent(z)`` maps a scaled
-    latent [B,h,w,4] to an image [B,8h,8w,3] in [-1, 1]."""
+    """SD's VAE: ``decode_latent(z)`` maps a scaled latent [B,h,w,4] to an
+    image [B,8h,8w,3] in [-1, 1]; ``sample_latent(x, draw)`` maps an image
+    in [-1, 1] to a sampled, scaled latent, with ``draw(shape)`` the
+    standard normals (fp32) of the posterior sample."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        # the decode side first: see the module doc
         self.decoder = VAEDecoder(cfg)
         self.post_quant_conv = Conv1x1(cfg.latent_channels, cfg.latent_channels)
+        self.encoder = VAEEncoder(cfg)
+        self.quant_conv = Conv1x1(2 * cfg.latent_channels, 2 * cfg.latent_channels)
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Image [B,H,W,3] -> (mean, logvar) [B,H/8,W/8,4], logvar clipped
+        to [-30, 20]."""
+        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def _sample(self, x: torch.Tensor, draw: Callable[[tuple], torch.Tensor]) -> torch.Tensor:
+        mean, logvar = self.encode(x)
+        return mean + torch.exp(0.5 * logvar) * draw(tuple(mean.shape)).to(mean.dtype)
+
+    def forward(self, x: torch.Tensor, draw: Callable[[tuple], torch.Tensor]) -> torch.Tensor:
+        """Encode, sample, decode."""
+        return self.decode(self._sample(x, draw))
+
+    def sample_latent(self, x: torch.Tensor,
+                      draw: Callable[[tuple], torch.Tensor]) -> torch.Tensor:
+        """Image in [-1, 1] -> scaled latent (the training-space one)."""
+        return self._sample(x, draw) * self.cfg.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))

@@ -91,7 +91,8 @@ def main() -> None:
         from clap2diffusion_tpu_torch.diffusion.ddim import cfg_eps_fn, ddim_sample
 
         eps_fn = cfg_eps_fn(pipe.unet, ehs[:1], ehs[1:], 7.5, routed, routed)
-        lat = pipe.draw_latents(0, 1)
+        size = cfg.diffusion.image_size // 8
+        lat = pipe.draws(0).latents((1, size, size, 4)).to(pipe.compute_dtype)
         lat, stages["ddim_loop_s"] = _timed(
             lambda: ddim_sample(eps_fn, pipe.schedule, lat, args.steps))
         _, stages["vae_decode_s"] = _timed(lambda: pipe.vae.decode_latent(lat))

@@ -41,7 +41,6 @@ from clap2diffusion_tpu_torch.diffusion.pipeline import _special_init, build_mod
 from clap2diffusion_tpu_torch.models.clap.frontend import log_mel_spectrogram
 from clap2diffusion_tpu_torch.models.clap.htsat import ClapAudioTower
 from clap2diffusion_tpu_torch.models.clip_text import CLIPTextEncoder
-from clap2diffusion_tpu_torch.models.condition.adapter import AudioAdapter
 from clap2diffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 from clap2diffusion_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from clap2diffusion_tpu_torch.train.stages import (
@@ -54,12 +53,12 @@ from clap2diffusion_tpu_torch.utils.logging import MetricLogger
 
 
 def init_params(cfg: Config, seed: int = 0, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Random fp32 weights for every tower (the pipeline's five and the
-    adapter), drawn on ``device`` from one seeded ``torch.Generator`` with
+    """Random fp32 weights for every tower of the pipeline (the adapter
+    included), drawn on ``device`` from one seeded ``torch.Generator`` with
     the pipeline's initialisation rule."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        mods = {**build_modules(cfg), "adapter": AudioAdapter(cfg.condition)}
+        mods = build_modules(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
     for name, m in mods.items():

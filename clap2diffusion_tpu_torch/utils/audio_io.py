@@ -1,6 +1,10 @@
-"""WAV read/write and file loading for the training data path (copies of
-``clap2diffusion_tpu/utils/audio_io.py::read_wav``/``write_wav`` and the
-numpy path of ``clap2diffusion_tpu/utils/native_audio.py::load_audio``).
+"""WAV read/write and file loading (copies of
+``clap2diffusion_tpu/utils/audio_io.py::read_wav``/``read_wav_pcm16``/
+``write_wav``/``peak_normalize`` and the numpy path of
+``clap2diffusion_tpu/utils/native_audio.py::load_audio``).
+
+``read_wav_pcm16`` and ``peak_normalize`` serve the pipeline's
+``load_audio``; ``load_audio`` here serves the training data path.
 
 ``load_audio`` decodes a WAV, mono-averages, resamples with the port's
 polyphase resampler (``models/clap/frontend.py::resample_poly``), pads or
@@ -13,7 +17,7 @@ from __future__ import annotations
 
 import struct
 import wave
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -62,6 +66,42 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     if channels > 1:
         x = x.reshape(-1, channels).T
     return x, sr
+
+
+def read_wav_pcm16(path: str) -> Optional[Tuple[np.ndarray, int]]:
+    """The serving fast path: a mono 16-bit PCM WAV -> (int16 [samples],
+    sr); None for anything that needs a conversion (another format, bit
+    depth or channel count) or cannot be read as one."""
+    try:
+        with open(path, "rb") as f:
+            header = f.read(12)
+            if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
+                return None
+            fmt = data = None
+            while True:
+                chunk = f.read(8)
+                if len(chunk) < 8:
+                    break
+                cid, size = chunk[:4], struct.unpack("<I", chunk[4:])[0]
+                payload = f.read(size + (size & 1))[:size]
+                if cid == b"fmt ":
+                    fmt = struct.unpack("<HHIIHH", payload[:16])
+                elif cid == b"data":
+                    data = payload
+    except (OSError, struct.error):  # struct.error: a fmt chunk under 16 bytes
+        return None
+    if fmt is None or data is None or len(data) % 2:
+        return None
+    audio_format, channels, sr, _, _, bits = fmt
+    if audio_format not in (1, 0xFFFE) or bits != 16 or channels != 1:
+        return None
+    return np.frombuffer(data, dtype="<i2"), sr
+
+
+def peak_normalize(x: np.ndarray, eps: float = 1e-9) -> np.ndarray:
+    """Divide by the peak, as the reference's inference path does."""
+    peak = np.abs(x).max()
+    return (x / (peak + eps)).astype(np.float32) if peak > 0 else x.astype(np.float32)
 
 
 def write_wav(path: str, x: np.ndarray, sr: int) -> None:

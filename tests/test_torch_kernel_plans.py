@@ -265,14 +265,19 @@ def test_ptxas_summary_names_the_redesigned_kernels():
 
 
 # GroupNorm(+SiLU) at the serving and training census: the SD v1.5 UNet's
-# (H = W, C) at 32 groups (C/G from 10 to 80) and the VAE decoder's
-# (C/G from 4 to 16), NHWC.
+# (H = W, C) at 32 groups (C/G from 10 to 80), the VAE decoder's (C/G from
+# 4 to 16) at batch 1 and 2 (per-lane seeds), and the two slabs only the
+# VAE encoder (img2img, inpainting) gives, NHWC.
 UNET_GN = [(64, 320), (64, 640), (64, 960), (32, 320), (32, 640), (32, 960), (32, 1280),
            (32, 1920), (16, 640), (16, 1280), (16, 1920), (16, 2560), (8, 1280), (8, 2560)]
 VAE_GN = [(64, 512), (128, 512), (256, 512), (256, 256), (512, 256), (512, 128)]
+VAE_ENCODER_GN = [(256, 128), (128, 256)]
 GN_CENSUS = ([((b, hw, hw, c), dt) for b in (2, 4) for hw, c in UNET_GN
               for dt in (torch.bfloat16, torch.float32)]
-             + [((1, hw, hw, c), dt) for hw, c in VAE_GN for dt in (torch.bfloat16, torch.float32)])
+             + [((b, hw, hw, c), dt) for b in (1, 2) for hw, c in VAE_GN
+                for dt in (torch.bfloat16, torch.float32)]
+             + [((1, hw, hw, c), dt) for hw, c in VAE_ENCODER_GN
+                for dt in (torch.bfloat16, torch.float32)])
 
 
 @pytest.mark.parametrize("shape,dtype", GN_CENSUS)
@@ -306,6 +311,14 @@ def test_group_norm_plan_keeps_every_serving_unet_slab_resident(hw, c):
     """The UNet at CFG batch 2 in bf16: x is read from device memory once."""
     plan = pgn.launch_plan((2, hw, hw, c), torch.bfloat16, 32)
     assert plan["resident"] and plan["x_reads"] == 1.0 and plan["grid"] <= 132
+
+
+@pytest.mark.parametrize("hw,c", VAE_ENCODER_GN)
+def test_group_norm_plan_keeps_the_encoders_new_slabs_resident_in_bf16(hw, c):
+    """The encoder's [1,256,256,128] and [1,128,128,256] (16.8 and 8.4 MB in
+    bf16) fit the grid's shared memory: x is read once, on every SM."""
+    plan = pgn.launch_plan((1, hw, hw, c), torch.bfloat16, 32)
+    assert plan["resident"] and plan["x_reads"] == 1.0 and plan["grid"] == 132
 
 
 def test_group_norm_plan_is_a_pure_function_and_refuses_what_the_kernel_does_not_take():

@@ -4,7 +4,8 @@
   port from the same JAX weights (through ``convert.from_flax``) and the
   same initial latents (the JAX threefry draw), held to that test's bounds.
 - Weight round trip: the JAX package's torch converters, applied to the
-  port's ``state_dict()``, give back the JAX tree leaf for leaf.
+  port's ``state_dict()`` (the VAE's encoder and the audio adapter
+  included), give back the JAX tree leaf for leaf.
 - The port and ``chip_smoke.py`` import no jax, flax or clap2diffusion_tpu.
 - Entry points run on CUDA unless the caller asks for the CPU.
 """
@@ -21,7 +22,7 @@ import torch
 
 from clap2diffusion_tpu.diffusion.pipeline import init_params
 from clap2diffusion_tpu_torch import convert
-from clap2diffusion_tpu_torch.diffusion.pipeline import AudioToImagePipeline
+from clap2diffusion_tpu_torch.diffusion.pipeline import AudioToImagePipeline, RequestDraws
 from tests.test_image_golden import GOLDEN_PATH
 from tests.test_pipeline import tiny_config
 from tests.test_torch_models import port_cfg
@@ -54,7 +55,19 @@ def _same_tree(got, want):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_golden_image_through_the_port(tiny):
+class _FedLatents(RequestDraws):
+    """The port's draws, with the initial latents given."""
+
+    def __init__(self, latents):
+        super().__init__("cpu", 0)
+        self.fed = latents
+
+    def latents(self, shape):
+        assert tuple(shape) == tuple(self.fed.shape)
+        return self.fed
+
+
+def test_golden_image_through_the_port(tiny, monkeypatch):
     from clap2diffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 
     cfg, params = tiny
@@ -64,10 +77,9 @@ def test_golden_image_through_the_port(tiny):
            + np.cos(np.linspace(0, 97 * np.pi, 24_000)) * 0.1).astype(np.float32)
     # the JAX program's initial latents (threefry), which torch cannot draw
     latents = torch.from_numpy(np.array(jax.random.normal(jax.random.key(11), (1, 8, 8, 4))))
-    img = pipe._generate_from_latents(
-        latents, wav[None], tok("golden rain"), tok(""), num_steps=3, guidance_scale=7.5,
-        norm_target=60.0, temperature=0.5, model_type="hierarchical", batch=1,
-    ).numpy()
+    monkeypatch.setattr(pipe, "draws", lambda seed, seeds=None: _FedLatents(latents))
+    img = pipe.generate(wav, tok("golden rain"), tok(""), num_steps=3, guidance_scale=7.5,
+                        norm_target=60.0, temperature=0.5, model_type="hierarchical")
     golden = np.load(GOLDEN_PATH)["image"]
     assert img.shape == golden.shape == (1, 64, 64, 3) and img.dtype == np.uint8
     diff = np.abs(img.astype(np.int32) - golden.astype(np.int32))
@@ -86,8 +98,8 @@ def test_generate_public_entry_on_cpu(tiny):
     assert a.shape == (1, 64, 64, 3) and a.dtype == np.uint8 and a.std() > 0
     np.testing.assert_array_equal(a, b)  # seed -> noise is deterministic
     assert c.shape == (2, 64, 64, 3)
-    with pytest.raises(ValueError, match="not ported"):
-        pipe.generate(waveform=wav, num_steps=2, model_type="sonic")
+    with pytest.raises(ValueError, match="unknown model_type"):
+        pipe.generate(waveform=wav, num_steps=2, model_type="sonicdiffusion")
 
 
 def test_random_init_is_seeded():
@@ -103,7 +115,10 @@ def test_random_init_is_seeded():
 
 def test_weight_round_trip_through_jax_converters(tiny):
     from clap2diffusion_tpu.models.clap.convert import convert_clap_audio
-    from clap2diffusion_tpu.models.condition.convert import convert_hierarchical_encoder
+    from clap2diffusion_tpu.models.condition.convert import (
+        convert_audio_adapter,
+        convert_hierarchical_encoder,
+    )
     from clap2diffusion_tpu.models.condition.export import export_injection_processors
     from clap2diffusion_tpu.models.convert import (
         convert_clip_text,
@@ -128,11 +143,10 @@ def test_weight_round_trip_through_jax_converters(tiny):
     for k in exported:
         np.testing.assert_array_equal(inject[k], exported[k])
 
-    # the VAE encoder is not ported: its entries come from the bridge
-    vae_sd = {**{k: v.numpy() for k, v in convert.vae_from_flax(params["vae"],
-                                                                 encoder=True).items()},
-              **sd(pipe.vae)}
-    _same_tree(convert_sd_vae(vae_sd, cfg.diffusion.vae), params["vae"])
+    # the whole VAE, its encoder and quant_conv included
+    _same_tree(convert_sd_vae(sd(pipe.vae), cfg.diffusion.vae), params["vae"])
+    _same_tree(convert_audio_adapter(sd(pipe.adapter), cfg.condition.adapter_self_attn_layers),
+               params["adapter"])
     _same_tree(convert_clip_text(sd(pipe.clip_text), cfg.diffusion.clip_text),
                params["clip_text"])
     _same_tree(convert_clap_audio(sd(pipe.clap_audio), cfg.clap.audio), params["clap_audio"])
