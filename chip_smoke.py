@@ -8,8 +8,8 @@ Phases (each raises on failure, so the exit code is non-zero):
      of the five CUDA sources (flash-attention forward and backward, the
      head-packed forward, the Winograd conv, GroupNorm; one nvcc each, in
      parallel), timed. No kernel of the port is Triton. The opt-in flags
-     C2D_PACKED_FLASH, C2D_WINOGRAD and C2D_INT8 are cleared; phases 3b and
-     5b set C2D_PACKED_FLASH=1 for themselves only.
+     C2D_PACKED_FLASH, C2D_WINOGRAD, C2D_INT8 and C2D_INT8_WIRE are
+     cleared; phases 3b and 5b set C2D_PACKED_FLASH=1 for themselves only.
   2. A census UNet forward (CFG batch 2) and VAE decode at full SD v1.5
      geometry record the shapes the serving path gives each kernel; then
      every kernel is held against its plain PyTorch version at each of those
@@ -90,6 +90,20 @@ Phases (each raises on failure, so the exit code is non-zero):
      ``seeds=[5, 5]``'s lanes and of solo ``seeds=[5]`` against lane 1 of
      ``[7, 5]`` are recorded; and each kernel is checked (untimed) at every
      shape of the phase that no earlier phase checked.
+  3d. Checkpoint and entry points at full width: phase 3's weights written
+     in the published layouts (diffusers UNet and VAE and HF CLIP text as
+     .safetensors, an HF ClapModel's audio tower with text-tower keys as
+     .bin, the reference's nested hierarchical and adapter .pth), the
+     port's ``tools/convert_checkpoints.py`` to a pipeline checkpoint
+     (bytes and seconds logged), ``apps.main infer --checkpoint`` in
+     process on phase 3's waveform (a float WAV), prompt and seed, then the
+     HTTP server on 127.0.0.1 over ``load_pipeline``: ``/healthz``,
+     ``/generate``, ``/generate_batch`` with seeds [7, 5], two concurrent
+     ``/generate`` through a coalescing service (500 ms, batch 2) and
+     ``/metrics``. Each image is held bit for bit against phase 3's first
+     image, phase 3c's ``seeds=[7, 5]`` or ``generate(seeds=..., batch=2)``
+     (an entry of KNOWN_DELTAS against the golden bounds instead), each
+     request's launches are exact, and its wall time and fetch wait logged.
   4. Reference check: a small configuration (flash and GroupNorm kernels
      on) in fp32 on the card against the same pipeline on the CPU (plain
      versions), under the frozen-golden bounds of tests/test_image_golden.py.
@@ -101,6 +115,11 @@ Phases (each raises on failure, so the exit code is non-zero):
   5b. Stage-2 training under C2D_PACKED_FLASH=1: 4 micro-steps, each with
      exactly 5 packed forwards, 10 per-head forwards and 14 backwards, 4 of
      them the packed route's at [4, 8, 4096, 40].
+  5c. The way back: phase 5 saves a final stage-2 checkpoint; ``apps.main
+     export`` writes it as .pth and .safetensors, both read back through
+     ``convert_hierarchical_encoder`` to the trained tower bit for bit, and
+     one 10-step ``infer --stage-checkpoint --ema`` request makes exactly
+     151 flash, 479 GN+SiLU and 161 GN launches.
   6. Small training reference: one stage-2 micro-step of the small
      configuration in fp32 on the card (TF32 off, kernels on) against the
      same step on the CPU: loss and the gradient of every trainable leaf.
@@ -119,22 +138,38 @@ census shapes (with per-call rows at the bench shapes). The last line is
 the device JSON.
 """
 
+import base64
 import contextlib
 import copy
 import json
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from clap2diffusion_tpu_torch.apps import main as M
+from clap2diffusion_tpu_torch.apps.server import InferenceService, serve
 from clap2diffusion_tpu_torch.core import config as C
-from clap2diffusion_tpu_torch.diffusion.pipeline import AudioToImagePipeline, RequestDraws
+from clap2diffusion_tpu_torch.diffusion.pipeline import (
+    AudioToImagePipeline,
+    RequestDraws,
+    init_params,
+    load_pipeline,
+)
+from clap2diffusion_tpu_torch.models.condition.convert import (
+    convert_hierarchical_encoder,
+    unwrap,
+)
 from clap2diffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 from clap2diffusion_tpu_torch.data.fixtures import make_fixture_dataset
 from clap2diffusion_tpu_torch.ops import cuda_build
@@ -143,7 +178,11 @@ from clap2diffusion_tpu_torch.ops import groupnorm as gn
 from clap2diffusion_tpu_torch.ops import winograd as wino
 from clap2diffusion_tpu_torch.ops import winograd_pallas as wp
 from clap2diffusion_tpu_torch.train import stages as S
+from clap2diffusion_tpu_torch.tools import convert_checkpoints as port_tool
 from clap2diffusion_tpu_torch.train import trainer as T
+from clap2diffusion_tpu_torch.train.checkpoint import load_torch_checkpoint
+from clap2diffusion_tpu_torch.utils.png import decode_png
+from clap2diffusion_tpu_torch.utils.safetensors_io import load_safetensors, save_safetensors
 from clap2diffusion_tpu_torch.utils.timing import graph_ms, sdpa_backward_device_ms
 
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -192,7 +231,7 @@ RAGGED_WINO_SHAPES = [((2, 4, 6, 32), 16), ((1, 2, 2, 16), 8), ((1, 6, 10, 48), 
                       ((2, 16, 16, 1904), 1280)]
 BENCH_WINO_SHAPES = [((2, 64, 64, 320), 320), ((2, 32, 32, 640), 640),
                      ((16, 64, 64, 320), 320)]  # tools/bench_wino_pallas.py:54-58
-FLAGS = ("C2D_PACKED_FLASH", "C2D_WINOGRAD", "C2D_INT8")
+FLAGS = ("C2D_PACKED_FLASH", "C2D_WINOGRAD", "C2D_INT8", "C2D_INT8_WIRE")
 # Per training micro-step (stages 2 and 3): 15 flash forwards (5 at each of
 # 4096, 1024 and 256 tokens) and 14 backwards. The first self-attention of
 # down block 0 comes before any trainable leaf (its input depends only on
@@ -722,7 +761,7 @@ def small_config():
             image_size=128))
 
 
-def train_phase(cfg, params, stage, steps, data_root, out_dir):
+def train_phase(cfg, params, stage, steps, data_root, out_dir, checkpoint_dir=None):
     """``run_stage`` as a user calls it, with each micro-step timed (to a
     synchronize) and its kernel launches counted."""
     steps_log = []
@@ -745,6 +784,7 @@ def train_phase(cfg, params, stage, steps, data_root, out_dir):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state = T.run_stage(cfg, stage, params, data_root=data_root, max_steps=steps,
+                            checkpoint_dir=checkpoint_dir,
                             log_dir=os.path.join(out_dir, "logs"), seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -786,7 +826,7 @@ def small_training_reference(card="cuda", gen_seed=5):
     (kernels) against the CPU (plain versions), the same weights, noise,
     timesteps and batch, dropout off."""
     cfg = C.apply_overrides(small_config(), ["train.compute_dtype=float32"])
-    cpu_params = T.init_params(cfg, seed=3, device="cpu")
+    cpu_params = init_params(cfg, seed=3, device="cpu")
     gen = torch.Generator().manual_seed(gen_seed)
     batch = random_batch(cfg, 2, gen)
     noise = torch.randn(batch["latent"].shape, generator=gen)
@@ -877,11 +917,6 @@ def generate_phase(pipe, wav, text, uncond, first_img, checked, card):
             and torch.equal(*pipe.draws(0, [5, 5]).latents((2, lat, lat, 4)))):
         raise AssertionError("a lane's initial latents are not its seed's solo draw")
 
-    def image_diff(a, b):
-        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
-        return {"max_abs_diff": int(d.max()), "mean_abs_diff": float(d.mean()),
-                "frac_differing": float((d > 0).mean()), "bit_equal": bool(d.max() == 0)}
-
     # the images, recorded: cuDNN's conv at [4, 32, 32, 640] (CFG batch 4)
     # gives two equal samples other bits (tools/probe_lane_bits.py), so equal
     # lanes, and a solo image against its lane at batch 2, need not match
@@ -934,7 +969,285 @@ def generate_phase(pipe, wav, text, uncond, first_img, checked, card):
          "three_generate_calls_s": t_calls, "stream_steps": STREAM_STEPS,
          "shapes_first_checked_here": fresh, "errs": errs,
          "sm_clock,power_draw,temperature_after": smi("clocks.sm,power.draw,temperature.gpu")})
-    return {"rows": rows, "errs": errs, "launches": launches}
+    return {"rows": rows, "errs": errs, "launches": launches, "images": images}
+
+
+# Phase 3d: a 50-step request makes 751 flash, 2,279 GN+SiLU and 801 GN
+# launches (batch 1 or 2); phase 5c's 10-step request 151, 479 and 161.
+REQUEST_LAUNCHES = {50: (751, 2279, 801), 10: (151, 479, 161)}
+TEXT = "rain on a tin roof, distant thunder"
+
+
+def write_float_wav(path, x, sr=48_000):
+    """A mono IEEE-float WAV, so that ``load_audio`` gives back ``x``'s bits."""
+    data = np.asarray(x, "<f4").tobytes()
+    fmt = struct.pack("<HHIIHH", 3, 1, sr, sr * 4, 4, 32)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(data)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<I", len(fmt)) + fmt)
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+    return path
+
+
+def image_diff(a, b):
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return {"max_abs_diff": int(d.max()), "mean_abs_diff": float(d.mean()),
+            "frac_differing": float((d > 0).mean()), "bit_equal": bool(d.max() == 0)}
+
+
+def hold(name, got, want, verdicts):
+    """Record whether ``got`` equals ``want`` bit for bit; ``settle`` raises
+    at the end of the phase, so that one run shows every comparison."""
+    if got.shape != want.shape or got.dtype != np.uint8:
+        verdicts[name] = {"fault": f"image {got.shape} {got.dtype}, want {want.shape}"}
+        return
+    verdicts[name] = image_diff(got, want)
+    if not verdicts[name]["bit_equal"]:
+        verdicts[name]["fault"] = "other bits"
+
+
+def settle(phase, verdicts):
+    faults = {k: v for k, v in verdicts.items() if "fault" in v}
+    if faults:
+        raise AssertionError(f"{phase}: {faults}")
+
+
+def launches_since(before):
+    after = counts()
+    return tuple(after[k] - before[k]
+                 for k in ("flash_attention", "group_norm_silu", "group_norm"))
+
+
+def upstream_artifacts(pipe, out_dir):
+    """Phase 3's weights in the published layouts: diffusers UNet and VAE
+    and HF CLIP text (``text_model.``) as .safetensors, an HF ClapModel's
+    audio tower (``audio_model.``, with text-tower keys and logit scales
+    the converter skips) as .bin, the reference's nested .pth for the
+    hierarchical encoder (with its level_prior and temperature buffers) and
+    the adapter. Returns the converter's flags."""
+    p = pipe.params
+    paths = {k: os.path.join(out_dir, name) for k, name in (
+        ("sd-unet", "diffusion_pytorch_model.safetensors"),
+        ("sd-vae", "vae.safetensors"), ("clip-text", "model.safetensors"),
+        ("clap", "clap_model.bin"), ("hierarchical", "hierarchical_v4_final.pth"),
+        ("adapter", "audio_projector_stage2.pth"))}
+    save_safetensors(paths["sd-unet"], {k: v for k, v in p["unet"].items()
+                                        if not k.startswith("audio_inject.")})
+    save_safetensors(paths["sd-vae"], p["vae"])
+    clip = {"text_model." + k: v for k, v in p["clip_text"].items()}
+    clip["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    save_safetensors(paths["clip-text"], clip)
+    clap = {("audio_model." + k if k.startswith("audio_encoder.") else k): v.cpu()
+            for k, v in p["clap_audio"].items()}
+    clap.update({"text_model.embeddings.position_ids": torch.arange(514)[None],
+                 "text_projection.linear1.weight": torch.zeros(512, 768),
+                 "logit_scale_a": torch.tensor(2.0), "logit_scale_t": torch.tensor(2.0)})
+    torch.save(clap, paths["clap"])
+    hier = {k: v.cpu() for k, v in p["hierarchical"].items()}
+    hier.update({"decomposer.level_prior": torch.tensor([0.5, 0.3, 0.2]),
+                 "decomposer.temperature": torch.tensor(2.0)})
+    torch.save({"step": 0, "hierarchical_state_dict": hier}, paths["hierarchical"])
+    torch.save({"adapter_state_dict": {k: v.cpu() for k, v in p["adapter"].items()}},
+               paths["adapter"])
+    return [a for k, path in paths.items() for a in (f"--{k}", path)]
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def http(port, path, body=None):
+    """(JSON or text answer, wall seconds) of one request to the server."""
+    url = f"http://127.0.0.1:{port}{path}"
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        raw = r.read()
+    wall = time.perf_counter() - t0
+    return (json.loads(raw) if path != "/healthz" else raw.decode()), wall
+
+
+def png_of(b64):
+    return decode_png(base64.b64decode(b64))
+
+
+@contextlib.contextmanager
+def running(service):
+    server = serve(service=service, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+
+def checkpoint_phase(pipe, wav, text, uncond, first_img, seeds_img, card):
+    """Phase 3d: phase 3's weights written in the published layouts, the
+    port's converter tool, ``apps.main infer --checkpoint`` and the HTTP
+    server over ``load_pipeline``, each image held against phase 3's or
+    3c's bits, with exact launch counts."""
+    tmp = tempfile.mkdtemp(prefix="c2d_ckpt_")
+    verdicts, rows = {}, {}
+    try:
+        up = os.path.join(tmp, "upstream")
+        os.makedirs(up)
+        t0 = time.perf_counter()
+        flags = upstream_artifacts(pipe, up)
+        rows["upstream_write_s"] = time.perf_counter() - t0
+        rows["upstream_bytes"] = dir_bytes(up)
+        ck = os.path.join(tmp, "pipeline")
+        t0 = time.perf_counter()
+        if port_tool.main([*flags, "--out", ck]) != 0:
+            raise AssertionError("convert_checkpoints failed")
+        rows["convert_s"] = time.perf_counter() - t0
+        rows["checkpoint_bytes"] = dir_bytes(ck)
+
+        wav_path = write_float_wav(os.path.join(tmp, "phase3.wav"), wav)
+        if not np.array_equal(pipe.load_audio(wav_path), wav):
+            raise AssertionError("load_audio does not give phase 3's waveform back")
+        png = os.path.join(tmp, "infer.png")
+        before, t0 = counts(), time.perf_counter()
+        M.main(["infer", "--checkpoint", ck, "--dtype", "bfloat16", "--audio", wav_path,
+                "--text", TEXT, "--steps", "50", "--seed", "0", "--output", png])
+        rows["cli_infer_s"] = time.perf_counter() - t0  # load + request + PNG
+        got = launches_since(before)
+        if got != REQUEST_LAUNCHES[50]:
+            raise AssertionError(f"infer --checkpoint: launches {got}, want {REQUEST_LAUNCHES[50]}")
+        with open(png, "rb") as f:
+            hold("cli_infer_vs_phase3", decode_png(f.read()), first_img[0], verdicts)
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        loaded = load_pipeline(pipe.cfg, ck, dtype=torch.bfloat16, device=pipe.device)
+        torch.cuda.synchronize()
+        rows["load_pipeline_s"] = time.perf_counter() - t0
+        with open(wav_path, "rb") as f:
+            audio = base64.b64encode(f.read()).decode()
+        req = {"audio_b64": audio, "text": TEXT, "steps": 50, "cfg": 7.5, "seed": 0}
+        served = []
+        with running(InferenceService(pipe=loaded)) as port:
+            if http(port, "/healthz")[0] != "ok":
+                raise AssertionError("/healthz")
+            before = counts()
+            out, wall = http(port, "/generate", req)
+            served.append({"request": "generate", "wall_s": wall, "launches": launches_since(before),
+                           "fetch_wait_s": out["info"]["fetch_wait_s"]})
+            hold("server_generate_vs_phase3", png_of(out["image_b64"]), first_img[0], verdicts)
+            before = counts()
+            out, wall = http(port, "/generate_batch", {
+                "requests": [{"audio_b64": audio, "text": TEXT, "seed": 7},
+                             {"audio_b64": audio, "text": TEXT, "seed": 5}],
+                "steps": 50, "cfg": 7.5})
+            served.append({"request": "generate_batch", "wall_s": wall,
+                           "launches": launches_since(before),
+                           "fetch_wait_s": out["info"]["fetch_wait_s"]})
+            batch_imgs = np.stack([png_of(b) for b in out["images_b64"]])
+            hold("server_generate_batch_vs_phase3c", batch_imgs, seeds_img, verdicts)
+            metrics = http(port, "/metrics")[0]
+        if metrics["requests"] != 2 or metrics["errors"] or metrics["images"] != 3:
+            raise AssertionError(f"/metrics: {metrics}")
+
+        # two sounds (phase 3's and 3c's second, reversed) from two clients,
+        # folded into one batch of two with per-lane seeds
+        wav2_path = write_float_wav(os.path.join(tmp, "second.wav"),
+                                    np.ascontiguousarray(waveform(seed=2)[::-1]))
+        with open(wav2_path, "rb") as f:
+            audio2 = base64.b64encode(f.read()).decode()
+        sounds = {21: (audio, wav_path), 22: (audio2, wav2_path)}
+        service = InferenceService(pipe=loaded, coalesce_ms=500, coalesce_max_batch=2)
+        pair = {}
+        with running(service) as port:
+            def post(seed):
+                pair[seed] = http(port, "/generate",
+                                  dict(req, seed=seed, audio_b64=sounds[seed][0]))
+
+            before = counts()
+            threads = [threading.Thread(target=post, args=(s,)) for s in sounds]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            got = launches_since(before)
+            metrics2 = http(port, "/metrics")[0]
+        if len(pair) != 2:
+            raise AssertionError("a coalesced request did not answer")
+        lanes = sorted(pair, key=lambda s: pair[s][0]["info"]["coalesced_lane"])
+        for s in lanes:
+            info = pair[s][0]["info"]
+            served.append({"request": f"coalesced seed {s}", "wall_s": pair[s][1],
+                           "coalesced_batch": info["coalesced_batch"],
+                           "lane": info["coalesced_lane"], "fetch_wait_s": info["fetch_wait_s"]})
+            if info["coalesced_batch"] != 2:
+                raise AssertionError(f"coalesced request {s}: {info}")
+        if got != REQUEST_LAUNCHES[50]:
+            raise AssertionError(f"coalesced pair: launches {got}, want {REQUEST_LAUNCHES[50]}")
+        want = loaded.generate(
+            waveform=np.stack([loaded.load_audio(sounds[s][1]) for s in lanes]), seeds=lanes,
+            text_ids=np.repeat(text, 2, 0), uncond_ids=np.repeat(uncond, 2, 0),
+            guidance_scale=7.5, num_steps=50, batch=2)
+        hold("server_coalesced_vs_generate_seeds",
+             np.stack([png_of(pair[s][0]["image_b64"]) for s in lanes]), want, verdicts)
+        if metrics2["requests"] != 2 or metrics2["errors"] or \
+                metrics2["coalesce"]["batches"] != 1:
+            raise AssertionError(f"/metrics of the coalescing server: {metrics2}")
+        for row in served:
+            if "launches" in row and row["launches"] != REQUEST_LAUNCHES[50]:
+                raise AssertionError(f"served request: {row}")
+        del loaded
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log({"phase": "checkpoint_entry_points", "card": card, **rows, "served": served,
+         "images": verdicts, "metrics": metrics, "coalescing_metrics": metrics2})
+    settle("phase 3d", verdicts)
+    return rows, served
+
+
+def export_phase(cfg, ckdir, trained_hier, wav, card):
+    """Phase 5c: ``apps.main export`` of the final stage-2 checkpoint to
+    .pth and .safetensors, both read back through the converter to the
+    trained ``hierarchical`` tower bit for bit; then one 10-step ``infer
+    --stage-checkpoint --ema`` request with its launch counts."""
+    tmp = tempfile.mkdtemp(prefix="c2d_export_")
+    try:
+        stage = os.path.join(ckdir, "stage2_final")
+        pth, st = os.path.join(tmp, "stage2.pth"), os.path.join(tmp, "stage2.safetensors")
+        t0 = time.perf_counter()
+        for out in (pth, st):
+            M.main(["export", "--stage-checkpoint", stage, "--out", out])
+        export_s = time.perf_counter() - t0
+        flat = load_safetensors(st)
+        reads = {
+            "pth": unwrap(load_torch_checkpoint(pth), "hierarchical_state_dict"),
+            "safetensors": {k[len("hierarchical."):]: v for k, v in flat.items()
+                            if k.startswith("hierarchical.")},
+        }
+        for fmt, sd in reads.items():
+            back = convert_hierarchical_encoder(sd, cfg.condition)
+            if sorted(back) != sorted(trained_hier) or not all(
+                    torch.equal(back[k], trained_hier[k]) for k in back):
+                raise AssertionError(f"export {fmt}: the hierarchical tower does not read back")
+        wav_path = write_float_wav(os.path.join(tmp, "a.wav"), wav)
+        png = os.path.join(tmp, "ema.png")
+        before, t0 = counts(), time.perf_counter()
+        M.main(["infer", "--stage-checkpoint", stage, "--ema", "--audio", wav_path,
+                "--text", TEXT, "--steps", "10", "--output", png])
+        wall = time.perf_counter() - t0
+        got = launches_since(before)
+        with open(png, "rb") as f:
+            img = decode_png(f.read())
+        size = cfg.diffusion.image_size
+        if got != REQUEST_LAUNCHES[10] or img.shape != (size, size, 3) or img.std() == 0:
+            raise AssertionError(f"infer --stage-checkpoint --ema: launches {got}, "
+                                 f"image {img.shape} std {img.std()}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log({"phase": "export_way_back", "card": card, "export_s": export_s,
+         "tensors": len(flat), "infer_stage_ema_s": wall, "launches": got})
 
 
 def main() -> int:
@@ -1015,7 +1328,7 @@ def main() -> int:
 
     # -- 2b. training census, then the backward kernel vs its plain version --
     train_cfg = C.Config()
-    train_params = T.init_params(train_cfg, seed=0, device="cuda")
+    train_params = init_params(train_cfg, seed=0, device="cuda")
     tcensus = training_census(train_cfg, train_params, gen)
     log({"phase": "training_census",
          **{f"stage{n}_counts": tcensus[n]["counts"] for n in (2, 3)},
@@ -1192,7 +1505,7 @@ def main() -> int:
     # -- 3. the main path ----------------------------------------------------
     tok = CLIPTokenizer(max_length=cfg.diffusion.clip_text.max_length)
     wav = waveform()
-    text, uncond = tok("rain on a tin roof, distant thunder"), tok("")
+    text, uncond = tok(TEXT), tok("")
     times, per_request, first_img = [], [], None
     torch.cuda.reset_peak_memory_stats()  # the phase's own peak, not the checks' above
     reset_counts()
@@ -1276,6 +1589,9 @@ def main() -> int:
     for kind, err in gen_out["errs"].items():
         errs[kind] = max(errs[kind], err)
 
+    # -- 3d. checkpoint and entry points at full width ---------------------------
+    checkpoint_phase(pipe, wav, text, uncond, first_img, gen_out["images"]["seeds"], card)
+
     # -- 4. small reference: the kernels in fp32 on the card vs the CPU -------
     small = small_config()
     wav_s = waveform(0.5, seed=1)
@@ -1306,8 +1622,9 @@ def main() -> int:
     data_root = os.path.join(tmp, "data")
     make_fixture_dataset(data_root, n_train=8, n_val=0, n_test=0, duration_s=10.0,
                          sample_rate=48_000, latent_hw=64)
+    ckdir = os.path.join(tmp, "ckpt")
     state, steps2, wall2, peak2 = train_phase(train_cfg, train_params, 2, TRAIN_STEPS,
-                                              data_root, tmp)
+                                              data_root, tmp, checkpoint_dir=ckdir)
     moved = check_training(2, train_cfg, train_params, state, steps2)
     # The projector is trainable in stage 2 (as in the JAX package) but its
     # 77 tokens feed no stage-2 loss term: its gradient is 0 and AdamW moves
@@ -1323,6 +1640,7 @@ def main() -> int:
         raise AssertionError(f"flash_attention_bwd: training shapes not checked: {missing}")
     if state.opt.count != TRAIN_STEPS // train_cfg.train.stage2.grad_accum:
         raise AssertionError(f"stage 2: {state.opt.count} optimizer updates")
+    trained_hier = {k: v.detach().cpu().clone() for k, v in state.params["hierarchical"].items()}
     del state
     step_s = [r["seconds"] for r in steps2]
     med = statistics.median(step_s[4:])
@@ -1370,6 +1688,10 @@ def main() -> int:
          "launches_per_step": [r["launches"] for r in steps2p],
          "bwd_from_packed_route": from_packed,
          "losses_last": steps2p[-1]["losses"]})
+    torch.cuda.empty_cache()
+
+    # -- 5c. the way back: export, re-ingest, infer --stage-checkpoint --ema ----
+    export_phase(train_cfg, ckdir, trained_hier, wav, card)
     torch.cuda.empty_cache()
 
     # -- 6. small training reference: fp32 step on the card vs the CPU --------

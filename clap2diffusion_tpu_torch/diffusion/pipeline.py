@@ -29,10 +29,26 @@ replaces that method to feed the JAX draws): the initial latents from
 sample noise, the img2img noise and the stochastic sampler's noise each
 from a generator of its own (see ``stream_seed``); with ``seeds``, each
 lane's latents and sampler noise from that lane's seed alone.
+
+Fetching: ``_dispatch_generate`` returns a handle whose ``numpy()`` gives
+the images. On CUDA it is a ``HostCopy``: the copy to pinned host memory
+is enqueued right after the request's last kernel, with an event behind
+it, so a fetch waits for its own request and not for whatever was
+enqueued after it. On the CPU the handle is the image tensor itself.
+
+Weights I/O: ``init_params`` draws a random pipeline, ``save_pipeline``
+writes the port's checkpoint format (one ``<tower>.safetensors`` per tower
+in the type it is held in, and a ``pipeline.json``), ``load_pipeline``
+checks it against the config and builds the pipeline, and
+``cached_init_params`` keeps random pipelines on disk under
+``C2D_PARAM_CACHE``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
 import math
 import os
 import time
@@ -69,10 +85,14 @@ from clap2diffusion_tpu_torch.models.unet import UNet2DCondition
 from clap2diffusion_tpu_torch.models.vae import AutoencoderKL
 from clap2diffusion_tpu_torch.ops.token_norm import rescale_to_norm
 from clap2diffusion_tpu_torch.utils.audio_io import peak_normalize, read_wav, read_wav_pcm16
+from clap2diffusion_tpu_torch.utils.safetensors_io import load_safetensors, save_safetensors
 
 MODEL_TYPES = ("hierarchical", "audio_tokens", "sonic", "baseline")
 # towers that compute in fp32 whatever the parameter type (see module doc)
 FP32_TOWERS = ("clap_audio", "hierarchical", "adapter")
+# the towers every pipeline checkpoint holds (load_pipeline)
+CORE_TOWERS = ("clap_audio", "clip_text", "hierarchical", "adapter", "unet", "vae")
+PIPELINE_FORMAT = "clap2diffusion_tpu_torch.pipeline.v1"
 LEVELS = ("early", "mid", "late")
 # the tags of a request's streams (stream_seed); the sampler's is the JAX
 # program's fold_in tag
@@ -130,6 +150,145 @@ def random_init_(module: nn.Module, generator: torch.Generator,
                                 dtype=torch.float32) * arg)
     return module
 
+
+def init_params(cfg: Config, seed: int = 0, dtype: torch.dtype = torch.float32,
+                device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Random weights for every tower (the adapter included), tower ->
+    state dict in ``dtype`` on ``device`` (CUDA unless the caller asks for
+    the CPU), drawn from one ``torch.Generator`` seeded with ``seed`` by
+    ``random_init_``'s rule. A seed draws other values on the CPU than on
+    CUDA (other generators)."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        mods = build_modules(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, m in mods.items():
+        m.to_empty(device=dev)
+        random_init_(m.to(dtype), gen, _special_init(cfg))
+        out[name] = {k: v.detach() for k, v in m.state_dict().items()}
+    return out
+
+
+def save_pipeline(path: str, params: Dict[str, Dict[str, torch.Tensor]]) -> str:
+    """Write a pipeline's weights (tower -> state dict: the six core towers
+    and any other) as the port's checkpoint: ``<tower>.safetensors`` per
+    tower, each tensor in the type it is held in, and ``pipeline.json``
+    (the format tag, the towers and their types), written last. Returns
+    the directory."""
+    p = os.path.abspath(path)
+    os.makedirs(p, exist_ok=True)
+    towers = {}
+    for tower, sd in params.items():
+        tmp = os.path.join(p, f".{tower}.safetensors.tmp")
+        save_safetensors(tmp, sd)
+        os.replace(tmp, os.path.join(p, f"{tower}.safetensors"))
+        towers[tower] = sorted({str(t.dtype).removeprefix("torch.") for t in sd.values()})
+    with open(os.path.join(p, "pipeline.json"), "w") as f:
+        json.dump({"format": PIPELINE_FORMAT, "towers": towers}, f, indent=1)
+    return p
+
+
+def restore_params_host(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A ``save_pipeline`` checkpoint as CPU tensors: every tower it lists,
+    in the types they were saved in."""
+    p = os.path.abspath(path)
+    try:
+        with open(os.path.join(p, "pipeline.json")) as f:
+            meta = json.load(f)
+    except FileNotFoundError:
+        raise ValueError(f"{path} is not a pipeline checkpoint of the port (no pipeline.json); "
+                         "write one with clap2diffusion_tpu_torch.tools.convert_checkpoints "
+                         "or save_pipeline") from None
+    if meta.get("format") != PIPELINE_FORMAT:
+        raise ValueError(f"{path}: unknown pipeline checkpoint format {meta.get('format')!r}")
+    return {t: load_safetensors(os.path.join(p, f"{t}.safetensors")) for t in meta["towers"]}
+
+
+def params_cache_path(cfg: Config, seed: int = 0, dtype: torch.dtype = torch.float32,
+                      cache_dir: Optional[str] = None, device=None) -> Optional[str]:
+    """Where ``cached_init_params`` keeps a (geometry, seed, dtype, device
+    type) param set; None when no cache directory is configured (the
+    ``cache_dir`` argument or ``C2D_PARAM_CACHE``). The device type is part
+    of the key because the CPU's and CUDA's generators draw other values."""
+    cache_dir = cache_dir or os.environ.get("C2D_PARAM_CACHE")
+    if not cache_dir:
+        return None
+    dev = torch.device("cuda" if device is None else device)
+    key = hashlib.sha256(json.dumps(
+        [dataclasses.asdict(cfg), seed, str(dtype), dev.type], sort_keys=True, default=str
+    ).encode()).hexdigest()[:16]
+    return os.path.join(os.path.abspath(cache_dir), f"params_{key}")
+
+
+def cached_init_params(cfg: Config, seed: int = 0, dtype: torch.dtype = torch.float32,
+                       cache_dir: Optional[str] = None, device=None):
+    """``init_params`` with an on-disk cache (``save_pipeline`` format) at
+    ``params_cache_path``; without a cache directory, a fresh draw."""
+    path = params_cache_path(cfg, seed, dtype, cache_dir, device)
+    if path is None:
+        return init_params(cfg, seed, dtype, device)
+    if os.path.exists(os.path.join(path, "pipeline.json")):
+        dev = resolve_device(device)
+        return {t: {k: v.to(dev) for k, v in sd.items()}
+                for t, sd in restore_params_host(path).items()}
+    params = init_params(cfg, seed, dtype, device)
+    save_pipeline(path, params)
+    return params
+
+
+def load_pipeline(cfg: Config, path: str, dtype: Optional[torch.dtype] = None,
+                  device=None) -> "AudioToImagePipeline":
+    """A pipeline from a ``save_pipeline`` checkpoint, on ``device`` (CUDA
+    unless the caller asks for the CPU). The six core towers must be there
+    and match ``cfg``'s geometry, name for name and shape for shape, or
+    this raises before any weight reaches the device. ``dtype`` casts the
+    towers that compute in the parameter type; ``FP32_TOWERS`` stay fp32.
+    Other towers of the checkpoint ride along untouched in
+    ``pipe.extra_params``. ``C2D_INT8_WIRE=1`` (the JAX package's int8
+    upload) is not ported and raises."""
+    if os.environ.get("C2D_INT8_WIRE") == "1":
+        raise NotImplementedError(
+            "C2D_INT8_WIRE=1 (the int8 weight upload of clap2diffusion_tpu/utils/wire.py) is "
+            "not ported to the PyTorch package yet (ROADMAP Queue 1, item 10); unset it")
+    params = restore_params_host(path)
+    missing = set(CORE_TOWERS) - set(params)
+    if missing:
+        raise ValueError(f"pipeline checkpoint at {path} is missing towers: {sorted(missing)}")
+    with torch.device("meta"):
+        mods = build_modules(cfg)
+    for tower in sorted(CORE_TOWERS):
+        expect = {k: tuple(v.shape) for k, v in mods[tower].state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in params[tower].items()}
+        if expect != got:
+            raise ValueError(f"pipeline checkpoint tower {tower!r} does not match the active "
+                             "config's geometry (structure or shapes differ) — wrong --config "
+                             "for this checkpoint?")
+    if dtype is not None:
+        for tower in CORE_TOWERS:
+            want = torch.float32 if tower in FP32_TOWERS else dtype
+            params[tower] = {k: v.to(want) for k, v in params[tower].items()}
+    pipe = AudioToImagePipeline(cfg, params={t: params.pop(t) for t in CORE_TOWERS},
+                                device=device)
+    pipe.extra_params = params
+    return pipe
+
+
+class HostCopy:
+    """Images on their way to the host: the copy into pinned host memory,
+    enqueued on the current stream right after the images' last kernel,
+    and the CUDA event recorded behind it. ``numpy()`` waits on that event
+    alone, so it never waits for work enqueued after the request."""
+
+    def __init__(self, img: torch.Tensor):
+        self.host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+        self.host.copy_(img, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(img.device))
+
+    def numpy(self) -> np.ndarray:
+        self.event.synchronize()
+        return self.host.numpy()
 
 
 
@@ -259,20 +418,19 @@ class AudioToImagePipeline:
                  device=None, dtype: torch.dtype = torch.float32):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if params is not None:
-            dtype = params["unet"][next(iter(params["unet"]))].dtype
+        if params is None:
+            params = init_params(cfg, seed, dtype, self.device)
+        dtype = params["unet"][next(iter(params["unet"]))].dtype
         self.compute_dtype = dtype
+        # towers of a checkpoint beyond the core ones (load_pipeline)
+        self.extra_params: Dict[str, Dict[str, torch.Tensor]] = {}
         with torch.device("meta"):
             mods = build_modules(cfg)
-        if params is not None and "adapter" not in params:
+        if "adapter" not in params:
             del mods["adapter"]
-        gen = torch.Generator(device=self.device).manual_seed(seed)
         for name, m in mods.items():
             m.to_empty(device=self.device)
-            if params is None:
-                random_init_(m.to(dtype), gen, _special_init(cfg))
-            else:
-                m.load_state_dict(params[name], strict=True)
+            m.load_state_dict(params[name], strict=True)
             tower_type = torch.float32 if name in FP32_TOWERS else dtype
             m.to(tower_type).eval().requires_grad_(False)
         mods["unet"].to(memory_format=torch.channels_last)
@@ -284,6 +442,14 @@ class AudioToImagePipeline:
         self.unet = mods["unet"]
         self.vae = mods["vae"]
         self.schedule = NoiseSchedule.create(cfg.diffusion.scheduler, device=self.device)
+
+    @property
+    def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The pipeline's weights, tower -> state dict, as its modules hold
+        them (what ``save_pipeline`` writes and ``merge_stage_params``
+        overlays)."""
+        return {n: getattr(self, n).state_dict() for n in CORE_TOWERS
+                if getattr(self, n) is not None}
 
     # -- host-side frontends --------------------------------------------------
 
@@ -370,7 +536,7 @@ class AudioToImagePipeline:
         card: on CUDA through pinned memory and an asynchronous copy (a copy
         from pageable memory synchronises the stream, which would stall
         the requests ``generate_stream`` keeps in flight)."""
-        t = torch.from_numpy(np.ascontiguousarray(x))
+        t = torch.from_numpy(np.require(x, requirements=["C", "W"]))
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
@@ -456,7 +622,7 @@ class AudioToImagePipeline:
         """Generate images [B, H, W, 3] uint8 (blocking); the arguments of
         ``_dispatch_generate``. Defaults: 50 steps, CFG 7.5, Norm-60, as in
         the JAX package."""
-        return self._dispatch_generate(*args, **kw).cpu().numpy()
+        return self._dispatch_generate(*args, **kw).numpy()
 
     def _dispatch_generate(
         self,
@@ -479,9 +645,11 @@ class AudioToImagePipeline:
         mask_image: Optional[np.ndarray] = None,
         seeds: Optional[np.ndarray] = None,
         guidance_rescale: float = 0.0,
-    ) -> torch.Tensor:
+    ):
         """Check and prepare the arguments, then enqueue the request;
-        returns the uint8 images on the device without synchronising.
+        returns, without synchronising, the handle whose ``numpy()`` gives
+        the uint8 images [B, H, W, 3] (see the module doc: a ``HostCopy`` on
+        CUDA, the tensor itself on the CPU).
 
         ``seeds`` (int [batch]) draws each lane's initial latents and
         sampler noise from its own seed (not with ``init_image``).
@@ -547,13 +715,17 @@ class AudioToImagePipeline:
             if mask_image is not None:
                 mask = _latent_mask(mask_image, size)
 
-        return self._generate(
+        img = self._generate(
             self.draws(seed, seeds), wav, wav2, np.asarray(text_ids, np.int32),
             np.asarray(uncond_ids, np.int32), num_steps=num_steps,
             guidance_scale=float(guidance_scale), model_type=model_type, batch=batch,
             norm_target=float(norm_target), temperature=float(temperature), sampler=sampler,
             init_steps=init_steps, init=init, audio_mix=float(np.float32(audio_mix)),
             mask=mask, guidance_rescale=float(guidance_rescale))
+        if not img.is_cuda:
+            return img
+        with torch.inference_mode():
+            return HostCopy(img)
 
     def generate_stream(self, requests, *, depth: int = 2, **shared):
         """Pipelined generation over an iterable of per-image ``generate``
@@ -573,7 +745,7 @@ class AudioToImagePipeline:
 
         def drain():
             t_dispatch, out = in_flight.popleft()
-            img = out.cpu().numpy()  # waits for the card
+            img = out.numpy()  # waits for this request's copy alone
             return img, time.perf_counter() - t_dispatch
 
         for req in requests:

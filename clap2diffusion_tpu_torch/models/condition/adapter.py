@@ -11,9 +11,9 @@ names are the reference's ``AudioAdapter`` names, as
 (0.1) after the KV MLP's GELU and after each self-attention output is
 active only with ``deterministic=False`` and draws from the caller's
 ``generator``. The pipeline's ``sonic`` model type injects its tokens
-(Norm-60) at every level. The reference's gated cross-attention layer
-(``GatedAudioCrossAttention``), which only the JAX package's checkpoint
-converters and exporter reach, is not ported yet.
+(Norm-60) at every level. ``GatedAudioCrossAttention`` is the reference's
+standalone gated cross-attention layer; no pipeline path reaches it, in
+either package.
 """
 
 from __future__ import annotations
@@ -92,3 +92,30 @@ class AudioAdapter(nn.Module):
     def forward(self, audio_embedding: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.token_generator(audio_embedding, deterministic, generator)
+
+
+class GatedAudioCrossAttention(nn.Module):
+    """Standalone post-text gated cross-attention:
+    ``residual + sigmoid(gate) * attn(LN(x), audio)``, with the gate
+    initialised to -5 so that the audio starts near silent. ``mask`` is
+    boolean, True where attention is allowed."""
+
+    def __init__(self, query_dim: int, context_dim: int = 768, heads: int = 8,
+                 dim_head: int = 64, gate_init: float = -5.0):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.norm = nn.LayerNorm(query_dim, eps=1e-5)
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.Linear(inner, query_dim)
+        self.gate = nn.Parameter(torch.full((1,), float(gate_init)))
+
+    def forward(self, hidden_states: torch.Tensor, audio_context: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.norm(hidden_states)
+        out = mha(self.to_q(x), self.to_k(audio_context), self.to_v(audio_context), self.heads,
+                  mask=mask)
+        out = self.to_out(out)
+        return hidden_states + torch.sigmoid(self.gate).to(out.dtype) * out

@@ -10,7 +10,9 @@ Dropout (rate 0.1) sits where the JAX modules have it and is active only
 with ``deterministic=False``, drawing its masks from the ``generator`` the
 caller passes. ``return_all=True`` also returns the stage-2 regularisers
 (``compute_condition_losses``) and the monitoring stats
-(``assignment_stats``).
+(``assignment_stats``). ``HierarchicalAudioV4`` is the reference's legacy
+rigid stack (a hard 5/3/2 token split), which ``models/condition/convert.py``
+and ``export.py`` carry; no pipeline path runs it.
 """
 
 from __future__ import annotations
@@ -270,3 +272,56 @@ def assignment_stats(assignments: torch.Tensor) -> Dict[str, torch.Tensor]:
     entropy = -(a * torch.log(a + 1e-8)).sum(-1).mean()
     return {"avg_assignment": a.mean(dim=(0, 1)), "entropy": entropy,
             "effective_levels": torch.exp(entropy)}
+
+
+class RigidHierarchicalDecomposition(nn.Module):
+    """The legacy decomposer: three per-level MLPs give 5, 3 and 2 tokens,
+    scaled by a softmax over 3 global weights, then cross-hierarchy
+    attention (4 heads, MLP ratio 2) and a LayerNorm."""
+
+    COUNTS = (("foreground", 5, 2.0), ("background", 3, 1.0), ("ambience", 2, 0.5))
+
+    def __init__(self, cfg: ConditionConfig):
+        super().__init__()
+        d = cfg.token_dim
+        for name, n, width in self.COUNTS:
+            hidden = int(d * width)
+            setattr(self, f"{name}_proj", nn.ModuleList([
+                nn.Linear(cfg.clap_dim, hidden), nn.GELU(), nn.Identity(),
+                nn.Linear(hidden, d * n)]))
+        self.hierarchy_weights = nn.Parameter(torch.tensor([0.5, 0.3, 0.2]))
+        self.cross_hierarchy_attn = CrossHierarchyAttention(d, 4, cfg.hierarchy_bottleneck,
+                                                            mlp_ratio=2.0)
+        self.layer_norm = nn.LayerNorm(d, eps=1e-5)
+
+    def forward(self, audio_features: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, d = audio_features.shape[0], self.layer_norm.normalized_shape[0]
+        w = torch.softmax(self.hierarchy_weights, dim=0)
+        parts = []
+        for i, (name, n, _) in enumerate(self.COUNTS):
+            p = getattr(self, f"{name}_proj")
+            h = dropout(F.gelu(p[0](audio_features)), DROPOUT, deterministic, generator)
+            tokens = p[3](h).reshape(b, n, d)
+            parts.append(tokens * w[i].to(tokens.dtype))
+        tokens = self.cross_hierarchy_attn(torch.cat(parts, dim=1), deterministic, generator)
+        return self.layer_norm(tokens)
+
+
+class HierarchicalAudioV4(nn.Module):
+    """The legacy stage-1 encoder: rigid decomposer + 77-token projector.
+    ``forward(clap [B,512])`` -> tokens77; with ``return_intermediate=True``
+    -> ``(tokens77, {"tokens10": ...})``."""
+
+    def __init__(self, cfg: ConditionConfig):
+        super().__init__()
+        self.decomposer = RigidHierarchicalDecomposition(cfg)
+        self.projector = AudioProjectionTransformer77(cfg)
+
+    def forward(self, clap_features: torch.Tensor, *, return_intermediate: bool = False,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
+        tokens10 = self.decomposer(clap_features, deterministic, generator)
+        tokens77 = self.projector(tokens10, deterministic, generator)
+        if return_intermediate:
+            return tokens77, {"tokens10": tokens10}
+        return tokens77

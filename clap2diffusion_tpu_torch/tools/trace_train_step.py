@@ -45,7 +45,7 @@ def main() -> None:
     from clap2diffusion_tpu_torch.core.config import Config
     from clap2diffusion_tpu_torch.train import stages as S
     from clap2diffusion_tpu_torch.train.optim import ema_update
-    from clap2diffusion_tpu_torch.train.trainer import init_params
+    from clap2diffusion_tpu_torch.diffusion.pipeline import init_params
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=4)

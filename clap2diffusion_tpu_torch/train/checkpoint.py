@@ -7,8 +7,8 @@ and renamed. Params are the state's dict tower -> name -> tensor; with a
 ``trainable`` predicate the frozen UNet body is pruned before saving
 (``prune_frozen_unet``) and taken from the caller's state at restore.
 ``merge_stage_params`` folds a stage's weights (or their EMA shadow) into a
-pipeline's per-tower state dicts for serving. Reading the reference's
-``.pth`` artifacts (``load_torch_checkpoint``) is not ported yet.
+pipeline's per-tower state dicts for serving. ``load_torch_checkpoint``
+reads the reference's ``.pth`` artifacts.
 """
 
 from __future__ import annotations
@@ -127,3 +127,10 @@ def stage_from_name(name: str) -> int:
         raise ValueError(f"cannot infer training stage from checkpoint name {name!r}; "
                          "expected a run_stage artifact like 'stage2_final'")
     return int(m.group(1))
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, Any]:
+    """A reference ``.pth`` file, loaded with ``weights_only=True`` (as the
+    reference's inference script loads it) onto the CPU: its nested dicts
+    as they are, with torch tensors for leaves."""
+    return torch.load(path, map_location="cpu", weights_only=True)

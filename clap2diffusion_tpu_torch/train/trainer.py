@@ -3,12 +3,12 @@ frozen-encoder embeddings -> stage steps -> logging and checkpoints, on one
 device.
 
 ``run_stage(cfg, stage, params, ...)`` takes the per-tower state dicts that
-``convert.from_flax`` returns (or ``init_params`` draws) and runs stage 1,
-2 or 3 eagerly, one micro-step per batch, on CUDA unless ``device="cpu"``
-is passed; it never moves to the CPU on its own. Batches stream from the
-latent dataset through the prefetching loader; CLAP audio embeddings and
-CLIP text contexts come from the frozen towers under ``torch.no_grad`` or
-from the ``emb/{id}.npz`` cache beside the data.
+``convert.from_flax`` returns (or ``diffusion.pipeline.init_params``
+draws) and runs stage 1, 2 or 3 eagerly, one micro-step per batch, on CUDA
+unless ``device="cpu"`` is passed; it never moves to the CPU on its own.
+Batches stream from the latent dataset through the prefetching loader; CLAP
+audio embeddings and CLIP text contexts come from the frozen towers under
+``torch.no_grad`` or from the ``emb/{id}.npz`` cache beside the data.
 
 ``steps_per_call`` has no eager counterpart: the JAX package runs that many
 steps in one compiled call and decides logging, validation and periodic
@@ -37,7 +37,6 @@ from torch import nn
 from clap2diffusion_tpu_torch.core.config import Config
 from clap2diffusion_tpu_torch.core.device import resolve_device
 from clap2diffusion_tpu_torch.data.latent_dataset import AudioCapsLatentDataset, PrefetchLoader
-from clap2diffusion_tpu_torch.diffusion.pipeline import _special_init, build_modules, random_init_
 from clap2diffusion_tpu_torch.models.clap.frontend import log_mel_spectrogram
 from clap2diffusion_tpu_torch.models.clap.htsat import ClapAudioTower
 from clap2diffusion_tpu_torch.models.clip_text import CLIPTextEncoder
@@ -50,22 +49,6 @@ from clap2diffusion_tpu_torch.train.stages import (
     train_step,
 )
 from clap2diffusion_tpu_torch.utils.logging import MetricLogger
-
-
-def init_params(cfg: Config, seed: int = 0, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Random fp32 weights for every tower of the pipeline (the adapter
-    included), drawn on ``device`` from one seeded ``torch.Generator`` with
-    the pipeline's initialisation rule."""
-    dev = resolve_device(device)
-    with torch.device("meta"):
-        mods = build_modules(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    out = {}
-    for name, m in mods.items():
-        m.to_empty(device=dev)
-        random_init_(m, gen, _special_init(cfg))
-        out[name] = {k: v.detach() for k, v in m.state_dict().items()}
-    return out
 
 
 def _tower(module: nn.Module, sd: Dict[str, torch.Tensor], device) -> nn.Module:
