@@ -104,6 +104,25 @@ Phases (each raises on failure, so the exit code is non-zero):
      image, phase 3c's ``seeds=[7, 5]`` or ``generate(seeds=..., batch=2)``
      (an entry of KNOWN_DELTAS against the golden bounds instead), each
      request's launches are exact, and its wall time and fetch wait logged.
+  3e. Best-of-n at full width: random CLIP ViT-L/14 vision weights and a
+     768x768 text projection (bf16, drawn on the card from seed 0) added to
+     phase 3's pipeline; ``generate_best_of(4)`` (50 steps) on phase 3's
+     waveform and prompt: exactly 751 / 2,279 / 801 launches, the four
+     candidates equal to ``generate(seeds=[0..3], batch=4)`` bit for bit,
+     the winner the argmax, the scores within SCORE_TOL of the same
+     towers' fp32 run; the kernels at the shapes no earlier phase checked
+     (the UNet at CFG batch 8); one ``/generate`` with ``best_of: 2``
+     through the server against ``generate_best_of(2)``; wall times
+     against phase 3's p50.
+  3f. Evaluation at full width: ``run_evaluation`` on a fixture dataset of
+     4 test samples (10 s at 48 kHz), 50 steps, with phase 3e's CLIP towers
+     and random Inception v3 (torchvision variant) and CLAP text weights
+     drawn on the card, phase 3's images (and 3c's sonic one) as PNG
+     reference frames: fid, kid, frechet_clip_vision, inception_score,
+     clip_score and audio_text_alignment computed and finite, exactly four
+     requests' launches, each phase's time logged; each metric tower on the
+     card against its fp32 CPU output on 2 inputs (TOWER_TOL); the
+     ``evaluate`` CLI once on the same data from a checkpoint.
   4. Reference check: a small configuration (flash and GroupNorm kernels
      on) in fp32 on the card against the same pipeline on the CPU (plain
      versions), under the frozen-golden bounds of tests/test_image_golden.py.
@@ -120,6 +139,17 @@ Phases (each raises on failure, so the exit code is non-zero):
      ``convert_hierarchical_encoder`` to the trained tower bit for bit, and
      one 10-step ``infer --stage-checkpoint --ema`` request makes exactly
      151 flash, 479 GN+SiLU and 161 GN launches.
+  5d. LoRA and remat: stage 2 with ``train.stage2.lora_rank=8`` at batch 4
+     (one update a micro-step, no warmup, so that A moves: its gradient is
+     zero until B has), 8 micro-steps with ``remat`` off, then the same 8
+     with it on, from the
+     same state and seed: losses within LOSS_TOL (bit equality logged),
+     exact launches per micro-step (LORA_STEP_LAUNCHES, worked out from
+     the code), A and B moved, every frozen leaf unchanged; peak memory
+     and the median micro-step of each. Then ``merge_stage_params(
+     use_ema=True)`` folds the remat run's adapters into the UNet, one
+     10-step request from it makes exactly 151 / 479 / 161 launches, and
+     its ``export`` holds the conditioning towers without the fold.
   6. Small training reference: one stage-2 micro-step of the small
      configuration in fp32 on the card (TF32 off, kernels on) against the
      same step on the CPU: loss and the gradient of every trainable leaf.
@@ -141,6 +171,7 @@ the device JSON.
 import base64
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -163,8 +194,16 @@ from clap2diffusion_tpu_torch.core import config as C
 from clap2diffusion_tpu_torch.diffusion.pipeline import (
     AudioToImagePipeline,
     RequestDraws,
+    _special_init,
     init_params,
     load_pipeline,
+    random_init_,
+)
+from clap2diffusion_tpu_torch.models.clip_vision import (
+    CLIPVisionEncoder,
+    build_tower,
+    clip_text_features,
+    preprocess_images_device,
 )
 from clap2diffusion_tpu_torch.models.condition.convert import (
     convert_hierarchical_encoder,
@@ -855,6 +894,25 @@ def small_training_reference(card="cuda", gen_seed=5):
             "leaves": len(g_cpu), "launches": n_card}
 
 
+def check_new_shapes(seen, checked, gen):
+    """The flash and GroupNorm kernels (bf16, untimed) at every shape of
+    ``seen`` (kernel -> shape counts) that no earlier phase checked; the
+    worst errors and how many shapes were new."""
+    errs = {"flash_attention_fwd": 0.0, "group_norm_silu": 0.0, "group_norm": 0.0}
+    fresh = 0
+    for kind, shapes in seen.items():
+        for key in set(shapes) - checked[kind]:
+            fresh += 1
+            if kind == "flash_attention":
+                r = flash_case(key[0], key[1], torch.bfloat16, gen, timed=False)
+                errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], r["max_abs_err"])
+            else:
+                r = gn_case(kind, key[0], torch.bfloat16, key[2], key[3], gen, timed=False)
+                errs[kind] = max(errs[kind], r["max_abs_err"])
+            checked[kind].add(key)
+    return errs, fresh
+
+
 def generate_phase(pipe, wav, text, uncond, first_img, checked, card):
     """Phase 3c: the rest of ``generate`` at full width (bf16, random
     weights, phase 3's pipeline, prompt and waveform): each request of
@@ -949,18 +1007,7 @@ def generate_phase(pipe, wav, text, uncond, first_img, checked, card):
     # through the UNet at CFG batch 4 and through the VAE decoder)
     seen = {fn.__name__: dict(fn.shapes)
             for fn in (fa.flash_attention, gn.group_norm_silu, gn.group_norm)}
-    new_gen = torch.Generator(device="cuda").manual_seed(4)
-    errs = {"flash_attention_fwd": 0.0, "group_norm_silu": 0.0, "group_norm": 0.0}
-    fresh = 0
-    for kind, shapes in seen.items():
-        for key in set(shapes) - checked[kind]:
-            fresh += 1
-            if kind == "flash_attention":
-                r = flash_case(key[0], key[1], torch.bfloat16, new_gen, timed=False)
-                errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], r["max_abs_err"])
-            else:
-                r = gn_case(kind, key[0], torch.bfloat16, key[2], key[3], new_gen, timed=False)
-                errs[kind] = max(errs[kind], r["max_abs_err"])
+    errs, fresh = check_new_shapes(seen, checked, torch.Generator(device="cuda").manual_seed(4))
     log({"phase": "generate_path", "card": card,
          "wall_s": {r["request"]: r["seconds"] for r in rows},
          "launches": launches, "seeds_5_5_lanes": twin_lanes,
@@ -1250,6 +1297,418 @@ def export_phase(cfg, ckdir, trained_hier, wav, card):
          "tensors": len(flat), "infer_stage_ema_s": wall, "launches": got})
 
 
+# Phase 3e: best-of-n. The candidates run as one batch of BEST_OF_N (CFG
+# batch 8), which makes as many launches as a batch of 1; the CLIP vision
+# tower attends with the plain matmul path (the JAX tower calls mha without
+# use_flash) and has no GroupNorm, so a 50-step best-of request makes 751 /
+# 2,279 / 801 launches.
+BEST_OF_N = 4
+# CLIPScore points (0-100) between the path's scores (CLIP text in bf16, the
+# vision tower in fp32) and the same towers' fp32 run. A score moves by at
+# most 100 |t16 - t32| (unit image features), and the full-width CLIP text
+# encoder's bf16 and fp32 text features differ by |t16 - t32| = 9.9e-3 on
+# random weights (a CPU run of the two); over 1,000 random unit image
+# features the largest move was 0.13 points.
+SCORE_TOL = 1.0
+# Phase 3f: four test samples of 10 s; the metric towers launch no kernel of
+# the port (plain attention, convs, BatchNorm), so run_evaluation makes four
+# 50-step requests' launches.
+EVAL_SAMPLES = 4
+# the metric towers on the card against the CPU, fp32 with TF32 off, per
+# output of max|cpu|: the summation order of 12-24 layers of matmuls or 94
+# convs (the largest seen in the CPU tests' fp32 towers is ~1e-6)
+TOWER_TOL = 1e-3
+# Phase 5d: stage 2 with LoRA (rank 8) at batch 4, launches per micro-step
+# (flash forward, flash backward, GN+SiLU, GN). Without remat: phase 5's 15
+# and 14, and the UNet forward's 45 and 16 (22 resnets x 2 + conv_norm_out;
+# 16 transformers); LoRA adds only matmuls. With remat every ResnetBlock and
+# Transformer2D whose output the backward needs is recomputed in the
+# backward, its kernels launched again: every block but down block 0's first
+# resnet (its inputs depend only on the latent, the timestep and frozen
+# weights, as for the 14 backwards), so +21 x 2 GN+SiLU, +16 GN and the 15
+# self-attentions (every one of them sits in a recomputed Transformer2D);
+# the backward launches as before (tests/test_torch_lora.py counts the
+# same recompute at the tiny size).
+LORA_RANK = 8
+LORA_STEPS = 8
+LORA_STEP_LAUNCHES = {False: {"flash_attention": 15, "flash_attention_bwd": 14,
+                              "group_norm_silu": 45, "group_norm": 16},
+                      True: {"flash_attention": 30, "flash_attention_bwd": 14,
+                             "group_norm_silu": 87, "group_norm": 32}}
+LOSS_TOL = 1e-3  # remat on vs off, per micro-step, of max(1, |loss|)
+
+
+def random_tower(module_cls, args, seed, dtype, he=False, dev="cuda"):
+    """A tower's state dict drawn on the card from ``seed`` by the
+    pipeline's rule (``random_init_``), in ``dtype``; ``he`` scales the conv
+    kernels by sqrt(2) so that activations keep their scale through ReLUs."""
+    with torch.device("meta"):
+        m = module_cls(*args)
+    m.to_empty(device=dev)
+    random_init_(m, torch.Generator(device=dev).manual_seed(seed), _special_init(C.Config()))
+    sd = {k: v.detach() for k, v in m.state_dict().items()}
+    if he:
+        sd = {k: v * 2 ** 0.5 if v.dim() == 4 else v for k, v in sd.items()}
+    return {k: v.to(dtype) for k, v in sd.items()}
+
+
+def best_of_phase(pipe, wav, text, uncond, checked, p50, card, dev="cuda"):
+    """Phase 3e: ``generate_best_of(4)`` at full width with random CLIP
+    vision weights and text projection (bf16, seed 0): the candidates
+    against ``generate(seeds, batch=4)`` bit for bit, the winner the
+    argmax, the scores against the towers' fp32 run, exact launches, the
+    kernels at the new shapes, and one ``/generate`` with ``best_of: 2``
+    against ``generate_best_of(2)``."""
+    cfg = pipe.cfg
+    n = BEST_OF_N
+    t0 = time.perf_counter()
+    pipe.extra_params["clip_vision"] = random_tower(
+        CLIPVisionEncoder, (cfg.diffusion.clip_vision,), 0, torch.bfloat16, dev=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    width = cfg.diffusion.clip_text.hidden_size
+    pipe.extra_params["clip_text_projection"] = {"weight": (torch.randn(
+        cfg.diffusion.clip_vision.projection_dim, width, device=dev, generator=gen)
+        / width ** 0.5).bfloat16()}
+    towers_s = time.perf_counter() - t0
+    captured = {}
+    real = pipe._dispatch_generate
+
+    def spy(**kw):
+        captured["handle"] = real(**kw)
+        return captured["handle"]
+
+    pipe._dispatch_generate = spy
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        before, t0 = counts(), time.perf_counter()
+        best, scores = pipe.generate_best_of(n, waveform=wav, text_ids=text, uncond_ids=uncond,
+                                             num_steps=50, guidance_scale=7.5, seed=0)
+        wall = time.perf_counter() - t0
+        got = launches_since(before)
+    finally:
+        del pipe._dispatch_generate
+    seen = {fn.__name__: dict(fn.shapes) for fn in (fa.flash_attention, gn.group_norm_silu,
+                                                    gn.group_norm)}
+    if got != REQUEST_LAUNCHES[50]:
+        raise AssertionError(f"best-of {n}: launches {got}, want {REQUEST_LAUNCHES[50]}")
+    cands = captured["handle"].numpy()
+    t0 = time.perf_counter()
+    want = pipe.generate(waveform=wav, text_ids=np.repeat(text, n, 0),
+                         uncond_ids=np.repeat(uncond, n, 0), seeds=list(range(n)), batch=n,
+                         num_steps=50, guidance_scale=7.5)
+    generate_wall = time.perf_counter() - t0
+    verdicts = {}
+    hold("candidates_vs_generate_seeds", cands, want, verdicts)
+    winner = int(np.argmax(scores))
+    hold("winner_is_the_argmax", best, cands[winner], verdicts)
+    if scores.shape != (n,) or not np.isfinite(scores).all():
+        raise AssertionError(f"best-of scores {scores}")
+
+    # the same towers in fp32 (the vision tower's own type on the path; the
+    # CLIP text encoder and the projection upcast) on the same candidates
+    with torch.inference_mode():
+        vision = build_tower(CLIPVisionEncoder, cfg.diffusion.clip_vision,
+                             pipe.extra_params["clip_vision"], dev)
+        text32 = copy.deepcopy(pipe.clip_text).float()
+        ids = torch.as_tensor(np.asarray(text, np.int32), device=dev)
+        feats = vision(preprocess_images_device(torch.from_numpy(cands).to(dev),
+                                                cfg.diffusion.clip_vision.image_size))
+        tf = clip_text_features(text32(ids), ids,
+                                pipe.extra_params["clip_text_projection"]["weight"].float())
+        ref = torch.clamp((feats * tf).sum(-1) * 100.0, min=0.0).cpu().numpy()
+    del vision, text32
+    score_err = float(np.abs(scores - ref).max())
+    if score_err > SCORE_TOL:
+        raise AssertionError(f"best-of scores {scores} vs the fp32 run {ref}: {score_err:.3g} "
+                             f"> {SCORE_TOL}")
+    errs, fresh = check_new_shapes(seen, checked, torch.Generator(device=dev).manual_seed(5))
+
+    # the server: best_of 2 bypasses the coalescer, answers the winner and
+    # the scores of generate_best_of(2)
+    tmp = tempfile.mkdtemp(prefix="c2d_bestof_")
+    try:
+        wav_path = write_float_wav(os.path.join(tmp, "a.wav"), wav)
+        with open(wav_path, "rb") as f:
+            audio = base64.b64encode(f.read()).decode()
+        with running(InferenceService(pipe=pipe)) as port:
+            before = counts()
+            out, server_wall = http(port, "/generate", {"audio_b64": audio, "text": TEXT,
+                                                        "steps": 50, "cfg": 7.5, "seed": 0,
+                                                        "best_of": 2})
+            server_launches = launches_since(before)
+        best2, scores2 = pipe.generate_best_of(2, waveform=pipe.load_audio(wav_path),
+                                               text_ids=text, uncond_ids=uncond, num_steps=50,
+                                               guidance_scale=7.5, seed=0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    hold("server_best_of_2_vs_generate_best_of_2", png_of(out["image_b64"]), best2, verdicts)
+    if out["info"]["clip_scores"] != [round(float(v), 4) for v in scores2] or \
+            server_launches != REQUEST_LAUNCHES[50]:
+        raise AssertionError(f"server best_of 2: {out['info']}, launches {server_launches}; "
+                             f"generate_best_of(2) scores {scores2}")
+    log({"phase": "best_of", "card": card, "n": n, "wall_s": wall, "p50_s": p50,
+         "wall_over_p50": wall / p50, "generate_batch_wall_s": generate_wall,
+         "server_best_of_2_wall_s": server_wall, "towers_draw_s": towers_s,
+         "scores": scores.tolist(), "fp32_scores": ref.tolist(), "score_err": score_err,
+         "score_tol": SCORE_TOL, "winner": winner, "launches": got,
+         "server_launches": server_launches, "images": verdicts,
+         "shapes_first_checked_here": fresh, "errs": errs})
+    settle("phase 3e", verdicts)
+    return {"launches": got, "errs": errs}
+
+
+def tower_vs_cpu(name, fn_card, fn_cpu):
+    """A metric tower's fp32 outputs on the card against the CPU's."""
+    got, want = fn_card(), fn_cpu()
+    worst = 0.0
+    for key in want:
+        a, b = got[key].float().cpu(), want[key].float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} {key}: non-finite output on the card")
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if err > TOWER_TOL:
+            raise AssertionError(f"{name} {key}: card vs CPU {err:.3g} of max|cpu| > {TOWER_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def evaluation_phase(pipe, frames, card, p50, dev="cuda", samples=EVAL_SAMPLES, steps=50):
+    """Phase 3f: ``run_evaluation`` at full width on 4 test samples of 10 s
+    with random CLIP vision (phase 3e's), Inception v3 (torchvision
+    variant) and CLAP text weights drawn on the card, ``frames`` as PNG
+    reference frames; every metric computed and finite, exact launches,
+    each metric tower against its fp32 CPU output on 2 inputs, and the
+    ``evaluate`` CLI on the same data."""
+    from clap2diffusion_tpu_torch.eval.evaluate import run_evaluation
+    from clap2diffusion_tpu_torch.models.clap.text import ClapTextTower
+    from clap2diffusion_tpu_torch.models.inception_v3 import (
+        InceptionV3,
+        build_inception,
+        preprocess_images_inception_device,
+    )
+    from clap2diffusion_tpu_torch.models.roberta_tokenizer import RobertaTokenizer
+    from clap2diffusion_tpu_torch.utils.png import encode_png
+
+    cfg = pipe.cfg
+    tmp = tempfile.mkdtemp(prefix="c2d_eval_")
+    try:
+        root = os.path.join(tmp, "data")
+        fe = cfg.clap.frontend
+        meta = make_fixture_dataset(root, n_train=0, n_val=0, n_test=samples,
+                                    duration_s=fe.duration_s, sample_rate=fe.sample_rate,
+                                    latent_hw=cfg.diffusion.image_size // 8)
+        os.makedirs(os.path.join(root, "frames"))
+        for smp, img in zip(meta["samples"], frames):
+            with open(os.path.join(root, "frames", f"{smp['id']}.png"), "wb") as f:
+                f.write(encode_png(img))
+        params = {**pipe.params,
+                  "clap_text": random_tower(ClapTextTower, (cfg.clap.text,), 1, torch.float32,
+                                            dev=dev),
+                  "inception_v3": random_tower(InceptionV3, (), 2, torch.float32, he=True,
+                                               dev=dev)}
+        reset_counts()
+        torch.cuda.synchronize()
+        before, t0 = counts(), time.perf_counter()
+        res = run_evaluation(cfg, data_root=root, max_samples=samples, num_steps=steps,
+                             seed=42, params=params, device=dev)
+        wall = time.perf_counter() - t0
+        got = launches_since(before)
+        want = tuple(samples * k for k in REQUEST_LAUNCHES[steps])
+        if got != want:
+            raise AssertionError(f"run_evaluation: launches {got}, want {want}")
+        s = res["summary"]
+        values = {"fid": s.get("fid"), "kid": (s.get("kid") or {}).get("mean"),
+                  "frechet_clip_vision": s.get("frechet_clip_vision"),
+                  "kid_clip_vision": (s.get("kid_clip_vision") or {}).get("mean"),
+                  "inception_score": (s.get("inception_score") or {}).get("mean"),
+                  "clip_score": (s.get("clip_score") or {}).get("mean"),
+                  "audio_text_alignment": (s.get("audio_text_alignment") or {}).get("mean")}
+        if any(v is None or not np.isfinite(v) for v in values.values()) or \
+                len(res["samples"]) != samples or res["clap_text_random_init"]:
+            raise AssertionError(f"run_evaluation: metrics {values}, {len(res['samples'])} "
+                                 f"samples, clap_text_random_init {res['clap_text_random_init']}")
+
+        # each metric tower on the card against its fp32 CPU output, 2 inputs
+        two = torch.from_numpy(np.stack(frames[:2]))
+        size = cfg.diffusion.clip_vision.image_size
+        towers = {}
+        vis = {d: build_tower(CLIPVisionEncoder, cfg.diffusion.clip_vision,
+                              params["clip_vision"], d) for d in (dev, "cpu")}
+        with torch.inference_mode():
+            towers["clip_vision"] = tower_vs_cpu(
+                "clip_vision",
+                lambda: {"features": vis[dev](preprocess_images_device(two.to(dev), size))},
+                lambda: {"features": vis["cpu"](preprocess_images_device(two, size))})
+            inc = {d: build_inception(params["inception_v3"], d) for d in (dev, "cpu")}
+            towers["inception_v3"] = tower_vs_cpu(
+                "inception_v3",
+                lambda: inc[dev](preprocess_images_inception_device(two.to(dev))),
+                lambda: inc["cpu"](preprocess_images_inception_device(two)))
+            rt = RobertaTokenizer()([smp["caption"] for smp in meta["samples"][:2]])
+            ids, mask = (torch.from_numpy(rt[k]) for k in ("input_ids", "attention_mask"))
+            txt = {}
+            for d in (dev, "cpu"):
+                with torch.device("meta"):
+                    txt[d] = ClapTextTower(cfg.clap.text)
+                txt[d].to_empty(device=d).load_state_dict(
+                    {k: v.to(d) for k, v in params["clap_text"].items()})
+            towers["clap_text"] = tower_vs_cpu(
+                "clap_text", lambda: {"embedding": txt[dev](ids.to(dev), mask.to(dev))},
+                lambda: {"embedding": txt["cpu"](ids, mask)})
+        del vis, inc, txt
+
+        # the evaluate CLI on the same data, from a checkpoint of the same weights
+        ck = os.path.join(tmp, "ck")
+        from clap2diffusion_tpu_torch.diffusion.pipeline import save_pipeline
+
+        save_pipeline(ck, params)
+        out = os.path.join(tmp, "results.json")
+        t0 = time.perf_counter()
+        M.main(["evaluate", "--checkpoint", ck, "--data-root", root, "--max-samples",
+                str(samples), "--steps", str(steps), "--output", out, "--device", str(dev)])
+        cli_wall = time.perf_counter() - t0
+        with open(out) as f:
+            cli = json.load(f)
+        cli_diff = {k: abs(cli["summary"][k]["mean"] - s[k]["mean"])
+                    for k in ("audio_text_alignment", "clip_score", "image_std")}
+        if [r["id"] for r in cli["samples"]] != [r["id"] for r in res["samples"]] or \
+                any(v > 1e-4 * max(1.0, abs(s[k]["mean"])) for k, v in cli_diff.items()):
+            raise AssertionError(f"evaluate CLI: {cli['summary']} vs run_evaluation {s}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log({"phase": "evaluation", "card": card, "samples": samples, "wall_s": wall,
+         "p50_s": p50, "timings": res["timings"], "metrics": values, "launches": got,
+         "tower_card_vs_cpu_of_max": towers, "tower_tol": TOWER_TOL,
+         "evaluate_cli_wall_s": cli_wall, "evaluate_cli_vs_run_evaluation": cli_diff,
+         "stamps": {k: res[k] for k in ("tokenizer_fallback", "roberta_fallback",
+                                        "clap_text_random_init")}})
+    return {"launches": got, "timings": res["timings"], "metrics": values}
+
+
+def lora_remat_phase(train_params, data_root, out_dir, wav, text, uncond, card, dev="cuda",
+                     base=None):
+    """Phase 5d: stage 2 with LoRA (rank 8) at batch 4, one update a micro-step, LORA_STEPS
+    micro-steps with remat off, then the same with it on, from the same
+    state and seed: losses, exact launches, A and B moved, frozen leaves
+    unchanged, peak memory and micro-step time; then the remat run's final
+    checkpoint folded from its EMA shadow and served for 10 steps, and its
+    export read back without the fold."""
+    from clap2diffusion_tpu_torch.models.condition.export import export_hierarchical_encoder
+    from clap2diffusion_tpu_torch.train.checkpoint import load_payload, merge_stage_params
+    from clap2diffusion_tpu_torch.train.lora import init_lora, merge_lora, target_names
+
+    # one update a micro-step and no warmup: A's gradient is zero until B
+    # has moved (B starts at zero), and with stage 2's grad_accum 4 and its
+    # 100-step warmup the second update moves A by less than fp32 resolves
+    base = base or C.Config()
+    off = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, stage2=dataclasses.replace(base.train.stage2, lora_rank=LORA_RANK,
+                                               grad_accum=1, warmup_steps=0)))
+    on = dataclasses.replace(off, diffusion=dataclasses.replace(
+        off.diffusion, unet=dataclasses.replace(off.diffusion.unet, remat=True)))
+    first = init_lora(train_params["unet"], LORA_RANK,
+                      torch.Generator(device=dev).manual_seed(0 + 0x10A5),
+                      alpha=off.train.stage2.lora_alpha)
+    ckdir = os.path.join(out_dir, "lora_ckpt")
+    runs = {}
+    for remat, cfg in ((False, off), (True, on)):
+        torch.cuda.empty_cache()
+        baseline_gb = torch.cuda.memory_allocated() / 2 ** 30
+        state, steps, wall, peak = train_phase(cfg, train_params, 2, LORA_STEPS, data_root,
+                                               os.path.join(out_dir, f"lora_remat_{remat}"),
+                                               checkpoint_dir=ckdir if remat else None)
+        want = LORA_STEP_LAUNCHES[remat]
+        for i, rec in enumerate(steps):
+            got = {k: rec["launches"][k] for k in want}
+            if got != want or not all(np.isfinite(v) for v in rec["losses"].values()):
+                raise AssertionError(f"LoRA stage 2 (remat {remat}) micro-step {i}: launches "
+                                     f"{got}, want {want}; losses {rec['losses']}")
+        trainable = S.make_stage2_step(cfg).trainable
+        for tw in ("hierarchical", "unet"):
+            for n, t in state.params[tw].items():
+                if not trainable(f"{tw}.{n}") and not torch.equal(t.detach(), train_params[tw][n]):
+                    raise AssertionError(f"LoRA stage 2 (remat {remat}): frozen {tw}.{n} changed")
+        lora = {k: v.detach().clone() for k, v in state.params["lora"].items()}
+        moved_a = sum(not torch.equal(lora[k], first[k]) for k in first if k.endswith(".a"))
+        moved_b = sum(bool(lora[k].abs().max() > 0) for k in first if k.endswith(".b"))
+        if not (moved_a and moved_b) or not torch.equal(lora["alpha"], first["alpha"]):
+            raise AssertionError(f"LoRA stage 2 (remat {remat}): A moved {moved_a}, B moved "
+                                 f"{moved_b}, alpha {lora['alpha']}")
+        step_s = [r["seconds"] for r in steps]
+        runs[remat] = {"losses": [r["losses"]["total"] for r in steps], "lora": lora,
+                       "micro_step_s": step_s, "median_micro_step_s": statistics.median(step_s[2:]),
+                       "peak_mem_gb": peak, "baseline_mem_gb": baseline_gb,
+                       "run_stage_wall_s": wall,
+                       "launches_per_step": steps[-1]["launches"], "moved_a": moved_a,
+                       "moved_b": moved_b}
+        del state
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(runs[True]["losses"], runs[False]["losses"]))
+    if loss_err > LOSS_TOL:
+        raise AssertionError(f"LoRA stage 2: remat on vs off losses differ by {loss_err:.3g}")
+    losses_equal = runs[True]["losses"] == runs[False]["losses"]
+    lora_equal = all(torch.equal(runs[True]["lora"][k], runs[False]["lora"][k])
+                     for k in runs[True]["lora"])
+
+    # the remat run's final checkpoint: the EMA shadow's adapters folded into
+    # the UNet, served for 10 steps
+    stage_dir = os.path.join(ckdir, "stage2_final")
+    payload = load_payload(ckdir, "stage2_final")
+    merged = merge_stage_params(train_params, payload, 2, use_ema=True, dtype=torch.bfloat16)
+    if "lora" in merged:
+        raise AssertionError("merge_stage_params returned the adapter tower")
+    shadow = {**payload["params"]["lora"],
+              **{k[len("lora."):]: v for k, v in payload["ema_params"].items()
+                 if k.startswith("lora.")}}
+    name = target_names(train_params["unet"])[0]
+    # the stage's tensors are cast to bf16 and folded into the base weights
+    # as the base holds them (fp32 here), as the JAX merge does
+    folded = merge_lora({name: train_params["unet"][name]},
+                        {k: v.to(dev, torch.bfloat16) for k, v in shadow.items()
+                         if k == "alpha" or k.startswith(name)})
+    if not torch.equal(merged["unet"][name], folded[name]):
+        raise AssertionError(f"merge_stage_params(use_ema=True): {name} is not the EMA fold")
+    fold_moved = sum(not torch.equal(merged["unet"][k], train_params["unet"][k])
+                     for k in target_names(train_params["unet"]))
+    serve_pipe = AudioToImagePipeline(off, params=merged, device=dev)
+    del merged
+    before, t0 = counts(), time.perf_counter()
+    img = serve_pipe.generate(waveform=wav, text_ids=text, uncond_ids=uncond, num_steps=10,
+                              guidance_scale=7.5, seed=0)
+    serve_wall = time.perf_counter() - t0
+    got = launches_since(before)
+    if got != REQUEST_LAUNCHES[10] or img.std() == 0:
+        raise AssertionError(f"LoRA-folded request: launches {got}, image std {img.std()}")
+    del serve_pipe
+
+    # export: the reference's formats hold the trained conditioning towers
+    # and the injection processors; the adapters are not folded (no UNet body)
+    tmp = tempfile.mkdtemp(prefix="c2d_lora_export_")
+    try:
+        pth = os.path.join(tmp, "stage2.pth")
+        M.main(["export", "--stage-checkpoint", stage_dir, "--out", pth])
+        nested = load_torch_checkpoint(pth)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sections = sorted(k for k in nested if k.endswith("_state_dict"))
+    want_hier = export_hierarchical_encoder(payload["params"]["hierarchical"])
+    if sections != ["hierarchical_state_dict", "unet_adapter_state_dict"] or any(
+            "lora" in k or "attn2" in k for k in nested["unet_adapter_state_dict"]) or not all(
+            torch.equal(nested["hierarchical_state_dict"][k].cpu(), v.cpu())
+            for k, v in want_hier.items()):
+        raise AssertionError(f"LoRA stage-2 export: sections {sections}")
+    log({"phase": "lora_remat", "card": card, "rank": LORA_RANK, "micro_steps": LORA_STEPS,
+         "batch": off.train.stage2.batch_size,
+         **{f"remat_{'on' if r else 'off'}": {k: v for k, v in runs[r].items() if k != "lora"}
+            for r in (False, True)},
+         "loss_max_rel_diff": loss_err, "losses_bit_equal": losses_equal,
+         "adapters_bit_equal": lora_equal, "ema_fold_changed_weights": fold_moved,
+         "folded_request_s": serve_wall,
+         "folded_request_launches": got, "export_sections": sections})
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1506,7 +1965,7 @@ def main() -> int:
     tok = CLIPTokenizer(max_length=cfg.diffusion.clip_text.max_length)
     wav = waveform()
     text, uncond = tok(TEXT), tok("")
-    times, per_request, first_img = [], [], None
+    times, per_request, first_img, phase3_imgs = [], [], None, []
     torch.cuda.reset_peak_memory_stats()  # the phase's own peak, not the checks' above
     reset_counts()
     for i in range(REQUESTS):
@@ -1517,6 +1976,7 @@ def main() -> int:
                             seed=i)
         times.append(time.perf_counter() - t0)
         first_img = img if i == 0 else first_img
+        phase3_imgs.append(img[0])
         req_counts = (fa.flash_attention.launches - before[0],
                       gn.group_norm_silu.launches - before[1])
         per_request.append(req_counts)
@@ -1591,6 +2051,21 @@ def main() -> int:
 
     # -- 3d. checkpoint and entry points at full width ---------------------------
     checkpoint_phase(pipe, wav, text, uncond, first_img, gen_out["images"]["seeds"], card)
+
+    # -- 3e. best-of-n at full width ---------------------------------------------
+    p50 = statistics.median(times[1:])
+    best_out = best_of_phase(pipe, wav, text, uncond, checked, p50, card)
+    for kind, err in best_out["errs"].items():
+        errs[kind] = max(errs[kind], err)
+    torch.cuda.empty_cache()
+
+    # -- 3f. evaluation at full width --------------------------------------------
+    eval_out = evaluation_phase(pipe, phase3_imgs + [gen_out["images"]["sonic"][0]], card, p50)
+    # the CLIP towers of 3e and the scorer built from them are released, so
+    # that the later phases' peak memory compares with earlier runs'
+    pipe.extra_params.clear()
+    pipe._scorer = None
+    torch.cuda.empty_cache()
 
     # -- 4. small reference: the kernels in fp32 on the card vs the CPU -------
     small = small_config()
@@ -1694,6 +2169,14 @@ def main() -> int:
     export_phase(train_cfg, ckdir, trained_hier, wav, card)
     torch.cuda.empty_cache()
 
+    # -- 5d. stage 2 with LoRA adapters, remat off then on ------------------------
+    lora_runs = lora_remat_phase(train_params, data_root, tmp, wav, text, uncond, card)
+    missing = set(fa.flash_attention_bwd.shapes) - {
+        k for k in rows["flash_attention_bwd"] if "bfloat16" in k[2]}
+    if missing:
+        raise AssertionError(f"flash_attention_bwd: LoRA/remat shapes not checked: {missing}")
+    torch.cuda.empty_cache()
+
     # -- 6. small training reference: fp32 step on the card vs the CPU --------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1723,7 +2206,7 @@ def main() -> int:
                        "clap2diffusion_tpu/ops/groupnorm.py:31"),
     }
     kernels = []
-    for kind, (route, src, replaces) in meta.items():
+    for i, (kind, (route, src, replaces)) in enumerate(meta.items()):
         kernels.append({
             "name": kind, "route": route, "source": src, "replaces": replaces,
             "launches": launches[kind], "max_abs_err": errs[kind],
@@ -1736,6 +2219,10 @@ def main() -> int:
             "training_launches": train_launches[
                 "flash_attention" if kind == "flash_attention_fwd" else kind],
             "generate_phase_launches": gen_out["launches"][
+                "flash_attention" if kind == "flash_attention_fwd" else kind],
+            "best_of_launches": best_out["launches"][i],
+            "evaluation_launches": eval_out["launches"][i],
+            "lora_remat_launches_per_micro_step": lora_runs[True]["launches_per_step"][
                 "flash_attention" if kind == "flash_attention_fwd" else kind],
         })
         if kind == "group_norm_silu":
@@ -1769,6 +2256,8 @@ def main() -> int:
         "device_ms": per_step_sum("device_ms"),
         "library_device_ms": per_step_sum("library_device_ms"),
         "gn_backward_ms": {str(r["x"]): r["backward_ms"] for r in gn_grad_rows},
+        "lora_remat_launches_per_micro_step": lora_runs[True]["launches_per_step"][
+            "flash_attention_bwd"],
     })
     # the packed forward per image under C2D_PACKED_FLASH=1 (phase 3b), bf16
     rows_p = rows["packed_flash_attention_fwd"]

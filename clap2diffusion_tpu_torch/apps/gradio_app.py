@@ -4,8 +4,9 @@
 samplers, img2img, inpainting and two-audio mixing.
 
 gradio is imported only by ``launch``; ``build_generator`` (the click
-handler) runs and is tested without it. Best-of-N reranking waits for the
-CLIP vision tower (ROADMAP Queue 1, item 7) and raises.
+handler) runs and is tested without it. Best-of-N reranks N candidates by
+CLIPScore on the card (``AudioToImagePipeline.generate_best_of``; it needs
+the CLIP vision weights).
 """
 
 from __future__ import annotations
@@ -38,14 +39,34 @@ def build_generator(cfg: Config, device=None, pipe=None):
                  seed, sampler="ddim", negative="", init_image=None,
                  strength=0.8, audio2_path=None, audio_mix=0.5,
                  mask_image=None, cfg_rescale=0.0, best_of=1):
-        if int(best_of) > 1:
-            raise ValueError("best-of-n reranking needs the CLIP vision tower, which is not "
-                             "ported to the PyTorch package yet (ROADMAP Queue 1, item 7)")
         wav = pipe.load_audio(audio_path) if audio_path else None
         # the mask is decoded whether or not there is an init image, so that
         # the pipeline's "mask_image requires init_image" reaches the UI
         init = pipe.load_init_image(init_image) if init_image is not None else None
         mask = pipe.load_init_image(mask_image, mask=True) if mask_image is not None else None
+        if int(best_of) > 1:
+            if init is not None or mask is not None:
+                raise ValueError("best-of-n is unsupported with init/mask images (candidates "
+                                 "need per-lane seeds)")
+            img, scores = pipe.generate_best_of(
+                int(best_of),
+                waveform=wav,
+                text_ids=tok(prompt or ""),
+                uncond_ids=tok(negative or ""),
+                num_steps=int(steps),
+                guidance_scale=float(cfg_scale),
+                norm_target=float(norm_value),
+                model_type=_MODEL_TYPES.get(model_name, "hierarchical"),
+                seed=int(seed),
+                sampler=str(sampler),
+                waveform2=pipe.load_audio(audio2_path) if audio2_path else None,
+                audio_mix=float(audio_mix),
+                guidance_rescale=float(cfg_rescale),
+            )
+            info = (f"model={model_name} steps={int(steps)} cfg={cfg_scale} "
+                    f"norm={norm_value} seed={int(seed)} sampler={sampler} "
+                    f"best_of={int(best_of)} clip_scores={[round(float(s), 2) for s in scores]}")
+            return np.asarray(img), info
         img = pipe.generate(
             waveform=wav,
             text_ids=tok(prompt or ""),
@@ -101,6 +122,8 @@ def launch(cfg: Optional[Config] = None, host: str = "0.0.0.0", port: int = 7860
                 cfg_s = gr.Slider(1.0, 20.0, value=7.5, label="CFG scale")
                 cfg_r = gr.Slider(0.0, 1.0, value=0.0, label="CFG rescale (0 = plain CFG)")
                 seed = gr.Number(value=42, precision=0, label="Seed")
+                best_of = gr.Slider(1, 8, value=1, step=1,
+                                    label="Best-of-N (CLIPScore rerank; needs CLIP vision weights)")
                 with gr.Accordion("img2img / composition", open=False):
                     init_img = gr.Image(label="Init image (SDEdit)")
                     strength = gr.Slider(0.05, 1.0, value=0.8, label="img2img strength")
@@ -113,7 +136,7 @@ def launch(cfg: Optional[Config] = None, host: str = "0.0.0.0", port: int = 7860
                 info = gr.Textbox(label="Generation info")
         btn.click(generate,
                   [audio, prompt, model, norm, steps, cfg_s, seed, sampler, negative,
-                   init_img, strength, audio2, mix, mask_img, cfg_r],
+                   init_img, strength, audio2, mix, mask_img, cfg_r, best_of],
                   [image, info])
 
     auth = None

@@ -1,8 +1,11 @@
 """Command line (port of ``clap2diffusion_tpu/apps/main.py``): infer,
-train, export, serve, app and ``prepare --create-sample``.
+train, evaluate, export, serve, app and ``prepare --create-sample``.
 
     python -m clap2diffusion_tpu_torch.apps.main infer --audio x.wav --text "..." \
-        --output out.png [--checkpoint DIR] [--steps 50 --cfg 7.5 --seed 0 --norm 60]
+        --output out.png [--checkpoint DIR] [--steps 50 --cfg 7.5 --seed 0 --norm 60] \
+        [--best-of N]
+    python -m clap2diffusion_tpu_torch.apps.main evaluate --data-root data/audiocaps \
+        [--checkpoint DIR] [--stage-checkpoint DIR --ema] [--fid-variant pytorch_fid]
     python -m clap2diffusion_tpu_torch.apps.main train --stage 2 --data-root data/audiocaps
     python -m clap2diffusion_tpu_torch.apps.main export \
         --stage-checkpoint checkpoints/stage2_final --out hierarchical.pth [--ema]
@@ -13,16 +16,19 @@ Models run on CUDA unless ``--device cpu``; nothing falls back to the CPU
 on its own. ``--config`` and ``--set`` need PyYAML; without them the
 defaults (full SD v1.5 width) apply. PNG files are written without Pillow;
 another image extension, ``--init-image`` and ``--mask-image`` need it.
-Not ported yet, and exiting non-zero with the ROADMAP item they wait for:
-``evaluate`` and ``infer --best-of > 1`` (Queue 1, item 7), ``prepare``
-beyond ``--create-sample`` (item 8), ``train --coordinator /
---num-processes / --process-id`` (item 9).
+``infer --best-of N`` and ``evaluate``'s CLIPScore and Frechet metrics need
+the towers the converter's ``--clip-vision`` / ``--inception`` slots add to
+a checkpoint. Not ported yet, and exiting non-zero with the ROADMAP item
+they wait for: ``prepare`` beyond ``--create-sample`` (Queue 1, item 8),
+``train --coordinator / --num-processes / --process-id`` and ``evaluate
+--shard`` (item 9).
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import json
 import os
 import sys
 import time
@@ -93,8 +99,6 @@ def cmd_infer(args) -> int:
     from clap2diffusion_tpu_torch.diffusion.pipeline import AudioToImagePipeline, load_pipeline
     from clap2diffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 
-    if args.best_of > 1:
-        raise unported("--best-of > 1 (CLIPScore reranking needs the CLIP vision tower)", 7)
     cfg = _load_cfg(args)
     dtype = DTypePolicy.from_strings("float32", args.dtype).compute_dtype
     if args.checkpoint:
@@ -133,6 +137,23 @@ def cmd_infer(args) -> int:
     # pipeline's "mask_image requires init_image" surfaces
     init = pipe.load_init_image(args.init_image) if args.init_image else None
     mask = pipe.load_init_image(args.mask_image, mask=True) if args.mask_image else None
+    if args.best_of > 1:
+        if not args.text:
+            raise SystemExit("--best-of ranks candidates by CLIPScore against the prompt; "
+                             "--text is required")
+        if args.batch != 1:
+            raise SystemExit("--best-of already batches candidates; --batch must stay 1")
+        if args.init_image or args.mask_image:
+            raise SystemExit("--best-of is unsupported with --init-image/--mask-image "
+                             "(candidates need per-lane seeds)")
+        img, scores = pipe.generate_best_of(
+            args.best_of, waveform=pipe.load_audio(args.audio) if args.audio else None,
+            waveform2=pipe.load_audio(args.audio2) if args.audio2 else None,
+            audio_mix=args.audio_mix, **shared)
+        save_image(args.output, img)
+        print(f"wrote {args.output} (best of {args.best_of}; clip_scores="
+              f"{[round(float(s), 3) for s in scores]})")
+        return 0
     images = pipe.generate(
         waveform=pipe.load_audio(args.audio) if args.audio else None,
         batch=args.batch, init_image=init, strength=args.strength,
@@ -163,7 +184,32 @@ def cmd_train(args) -> int:
 
 
 def cmd_evaluate(args) -> int:
-    raise unported("evaluate (the metric towers: CLIP vision, Inception, CLAP text)", 7)
+    from clap2diffusion_tpu_torch.eval.evaluate import run_evaluation
+
+    if args.shard:
+        raise unported("evaluate --shard (generation fanned out over a device mesh)", 9)
+    cfg = _load_cfg(args)
+    params = None
+    if args.checkpoint:
+        from clap2diffusion_tpu_torch.diffusion.pipeline import load_pipeline
+
+        params = load_pipeline(cfg, args.checkpoint, device=args.device).params
+    if args.stage_checkpoint:
+        from clap2diffusion_tpu_torch.diffusion.pipeline import init_params
+
+        base = params if params is not None else init_params(cfg, seed=args.seed,
+                                                             device=args.device)
+        params = _merge_stage(base, args.stage_checkpoint, args.ema, "float32")
+    results = run_evaluation(cfg, data_root=args.data_root, max_samples=args.max_samples,
+                             num_steps=args.steps, seed=args.seed, params=params,
+                             sampler=args.sampler, fid_variant=args.fid_variant,
+                             device=args.device)
+    out = args.output or "evaluation_results.json"
+    with open(out, "w") as f:
+        json.dump(results, f, indent=2)
+    print(json.dumps(results.get("summary", {}), indent=2))
+    print(f"wrote {out}")
+    return 0
 
 
 def cmd_prepare(args) -> int:
@@ -265,7 +311,10 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--norm", type=float, default=60.0)
     pi.add_argument("--batch", type=int, default=1)
     pi.add_argument("--best-of", dest="best_of", type=int, default=1,
-                    help="not ported: values > 1 exit (ROADMAP Queue 1, item 7)")
+                    help="generate N candidates (one batched request, per-lane seeds "
+                         "seed..seed+N-1), rank them by CLIPScore against --text on the card "
+                         "and save the winner; needs a checkpoint with the CLIP vision towers "
+                         "(the converter's --clip-vision)")
     pi.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
                     help="compute type of the towers that compute in the parameter type")
     pi.add_argument("--checkpoint", default=None,
@@ -307,19 +356,21 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(pt)
     pt.set_defaults(fn=cmd_train)
 
-    pe = sub.add_parser("evaluate", help="not ported (ROADMAP Queue 1, item 7)")
+    pe = sub.add_parser("evaluate", help="generate over the test split and compute the "
+                                         "metrics (JSON)")
     pe.add_argument("--data-root", default=None)
     pe.add_argument("--max-samples", type=int, default=8)
     pe.add_argument("--steps", type=int, default=50)
     pe.add_argument("--sampler", default=None, choices=SAMPLERS)
     pe.add_argument("--seed", type=int, default=42)
-    pe.add_argument("--shard", action="store_true")
+    pe.add_argument("--shard", action="store_true", help="not ported (ROADMAP Queue 1, item 9)")
     pe.add_argument("--fid-variant", default="torchvision", choices=["torchvision", "pytorch_fid"])
     pe.add_argument("--output", default=None)
     pe.add_argument("--checkpoint", default=None)
     pe.add_argument("--stage-checkpoint", default=None)
     pe.add_argument("--ema", action="store_true")
     _add_common(pe)
+    _add_device(pe)
     pe.set_defaults(fn=cmd_evaluate)
 
     pp = sub.add_parser("prepare", help="fixture data (--create-sample)")

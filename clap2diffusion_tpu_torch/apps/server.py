@@ -7,8 +7,13 @@
                            negative?: str, init_image_b64?: png/jpg bytes,
                            strength?: float, mask_image_b64?: grey png bytes,
                            audio2_b64?: wav bytes, audio_mix?: float,
-                           format?: "png"|"jpeg", quality?: int}
-                     -> JSON {image_b64, info: {...}}
+                           best_of?: int, format?: "png"|"jpeg", quality?: int}
+                     -> JSON {image_b64, info: {...}}; best_of > 1 generates N
+                     candidates in one batched request, ranks them by
+                     CLIPScore against ``text`` on the card and answers the
+                     winner, with ``info.clip_scores`` (it needs the CLIP
+                     vision weights, refuses init and mask images and
+                     bypasses the coalescer).
     POST /generate_batch
                      JSON {requests: [{audio_b64?, text?, negative?, seed?}, ...],
                            steps?, cfg?, norm?, seed?, model_type?, sampler?}
@@ -19,8 +24,7 @@
     GET  /metrics    -> JSON {requests, errors, images, coalesce, latency_s:
                        {p50, p90, max, count}} over a sliding window.
 
-``best_of > 1`` (CLIPScore reranking) answers 400: it waits for the CLIP
-vision tower (ROADMAP Queue 1, item 7). PNG answers go through the port's
+PNG answers go through the port's
 standard-library encoder (``utils/png.py``); ``format: "jpeg"`` and the
 uploaded init and mask images need Pillow, imported only then.
 
@@ -61,10 +65,6 @@ from typing import Optional
 import numpy as np
 
 from clap2diffusion_tpu_torch.utils.png import encode_png
-
-BEST_OF_UNPORTED = ("best_of > 1 (CLIPScore reranking) is not ported to the PyTorch package "
-                    "yet: it waits for the CLIP vision tower (ROADMAP Queue 1, item 7)")
-
 
 class _Pending:
     """One request parked in the coalescer's queue."""
@@ -331,11 +331,28 @@ class InferenceService:
     def generate(self, req: dict) -> dict:
         # every host-side decode runs outside the lock, which covers only
         # the enqueue; the fetch waits outside it for this request's copy
-        if int(req.get("best_of", 1)) > 1:
-            raise ValueError(BEST_OF_UNPORTED)
         wav = self._decode_audio(req)
         params = self._knobs(req)
         fmt, quality = req.get("format", "png"), int(req.get("quality", 92))
+        best_of = int(req.get("best_of", 1))
+        if best_of > 1:
+            # one batched request of candidates and the on-device select;
+            # only the winner and the scores are fetched. The coalescer's
+            # per-lane seed slots are taken by the candidates: bypass it
+            if any(req.get(k) for k in ("init_image_b64", "mask_image_b64")):
+                raise ValueError("best_of is unsupported with init/mask images (candidates "
+                                 "need per-lane seeds)")
+            kwargs = dict(waveform=wav, text_ids=self.tok(req.get("text", "")),
+                          uncond_ids=self.tok(str(req.get("negative", ""))),
+                          waveform2=self._decode_audio(req, "audio2_b64"),
+                          audio_mix=float(req.get("audio_mix", 0.5)), **params)
+            with self._lock:
+                best, scores = self.pipe._dispatch_best_of(best_of, **kwargs)
+            img, fetch_s = self._fetch(best)
+            return {"image_b64": self._img_b64(img, fmt, quality),
+                    "info": {**self._info(params), "best_of": best_of,
+                             "clip_scores": [round(float(v), 4) for v in scores.numpy()],
+                             "fetch_wait_s": fetch_s}}
         if self.coalescer is not None and not any(
                 req.get(k) for k in ("init_image_b64", "mask_image_b64", "audio2_b64")):
             p = self.coalescer.submit(

@@ -14,6 +14,11 @@ and are mapped by hand to the reference's processor names. The audio
 adapter (stage 1 and 3) is carried across under the reference's
 ``AudioAdapter`` names when the tree has one; the VAE's encoder and
 ``quant_conv`` (img2img and inpainting) are carried under diffusers' names.
+The optional towers are carried when the tree has them: the evaluation and
+best-of towers ``clip_vision`` and ``clip_text_projection`` (HF
+``CLIPModel`` names), ``clap_text`` (HF ``ClapModel`` names) and
+``inception_v3`` (torchvision names), and a stage-2 ``lora`` tree
+(``train/lora.py``'s layout in the UNet's names).
 """
 
 from __future__ import annotations
@@ -108,6 +113,39 @@ _ADAPTER_RULES: Rules = [
 ]
 
 
+_CLIP_VISION_RULES: Rules = [
+    (r"^class_embedding$", "vision_model.embeddings.class_embedding"),
+    (r"^position_embedding$", "vision_model.embeddings.position_embedding.weight"),
+    (r"^patch_embedding/", "vision_model.embeddings.patch_embedding/"),
+    (r"^(pre_layrnorm|post_layernorm)/", r"vision_model.\1/"),
+    (r"^layer_(\d+)/(q|k|v|out)_proj/", r"vision_model.encoder.layers.\1/self_attn/\2_proj/"),
+    (r"^layer_(\d+)/fc(\d)/", r"vision_model.encoder.layers.\1/mlp/fc\2/"),
+    (r"^layer_(\d+)/", r"vision_model.encoder.layers.\1/"),
+]
+
+_CLAP_TEXT_RULES: Rules = [
+    (r"^(word|position|token_type)_embeddings/", r"text_model.embeddings.\1_embeddings/"),
+    (r"^embed_norm/", "text_model.embeddings.LayerNorm/"),
+    (r"^pooler/", "text_model.pooler.dense/"),
+    (r"^projection_(\d)/", r"text_projection.linear\1/"),
+    (r"^layer_(\d+)/q/", r"text_model.encoder.layer.\1/attention.self.query/"),
+    (r"^layer_(\d+)/k/", r"text_model.encoder.layer.\1/attention.self.key/"),
+    (r"^layer_(\d+)/v/", r"text_model.encoder.layer.\1/attention.self.value/"),
+    (r"^layer_(\d+)/attn_out/", r"text_model.encoder.layer.\1/attention.output.dense/"),
+    (r"^layer_(\d+)/attn_norm/", r"text_model.encoder.layer.\1/attention.output.LayerNorm/"),
+    (r"^layer_(\d+)/intermediate/", r"text_model.encoder.layer.\1/intermediate.dense/"),
+    (r"^layer_(\d+)/out/", r"text_model.encoder.layer.\1/output.dense/"),
+    (r"^layer_(\d+)/out_norm/", r"text_model.encoder.layer.\1/output.LayerNorm/"),
+]
+
+_INCEPTION_RULES: Rules = [
+    (r"/bn_scale$", "/bn.weight"),
+    (r"/bn_bias$", "/bn.bias"),
+    (r"/bn_mean$", "/bn.running_mean"),
+    (r"/bn_var$", "/bn.running_var"),
+]
+
+
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -176,8 +214,54 @@ def adapter_from_flax(p) -> Dict[str, torch.Tensor]:
     return _convert(p, _ADAPTER_RULES)
 
 
+def clip_vision_from_flax(p) -> Dict[str, torch.Tensor]:
+    return _convert(p, _CLIP_VISION_RULES)
+
+
+def clip_text_projection_from_flax(kernel) -> Dict[str, torch.Tensor]:
+    """The JAX text-projection kernel [in, out] -> ``{"weight": [out, in]}``."""
+    return {"weight": torch.from_numpy(np.array(np.asarray(kernel, np.float32).T))}
+
+
+def clap_text_from_flax(p) -> Dict[str, torch.Tensor]:
+    return _convert(p, _CLAP_TEXT_RULES)
+
+
+def inception_v3_from_flax(p) -> Dict[str, torch.Tensor]:
+    return _convert(p, _INCEPTION_RULES)
+
+
+def lora_from_flax(p) -> Dict[str, torch.Tensor]:
+    """The JAX adapter tree ``{"<unet path>/kernel": {"a", "b"}, "alpha"}``
+    -> ``{"<unet weight>.a", "<unet weight>.b", "alpha"}`` (``a`` and ``b``
+    keep their shapes)."""
+    out = {"alpha": torch.tensor(float(np.asarray(p["alpha"])), dtype=torch.float32)}
+    for key, ab in p.items():
+        if key == "alpha":
+            continue
+        path = key
+        for pat, rep in _UNET_RULES:
+            path = re.sub(pat, rep, path)
+        name, _ = _leaf(path, np.zeros((1, 1), np.float32))
+        for part in ("a", "b"):
+            out[f"{name}.{part}"] = torch.from_numpy(np.array(ab[part], dtype=np.float32))
+    return out
+
+
+OPTIONAL_TOWERS = {
+    "adapter": adapter_from_flax,
+    "clip_vision": clip_vision_from_flax,
+    "clip_text_projection": clip_text_projection_from_flax,
+    "clap_text": clap_text_from_flax,
+    "inception_v3": inception_v3_from_flax,
+    "lora": lora_from_flax,
+}
+
+
 def from_flax(params) -> Dict[str, Dict[str, torch.Tensor]]:
-    """JAX pipeline params -> the port's per-tower state dicts."""
+    """JAX pipeline (or stage) params -> the port's per-tower state dicts;
+    the core towers the tree has, and the optional ones
+    (``OPTIONAL_TOWERS``) where it has them."""
     out = {
         "clap_audio": clap_audio_from_flax(params["clap_audio"]),
         "clip_text": clip_text_from_flax(params["clip_text"]),
@@ -185,6 +269,7 @@ def from_flax(params) -> Dict[str, Dict[str, torch.Tensor]]:
         "unet": unet_from_flax(params["unet"]),
         "vae": vae_from_flax(params["vae"]),
     }
-    if "adapter" in params:
-        out["adapter"] = adapter_from_flax(params["adapter"])
+    for tower, fn in OPTIONAL_TOWERS.items():
+        if tower in params:
+            out[tower] = fn(params[tower])
     return out

@@ -1,11 +1,9 @@
-"""Configuration dataclasses of the ported slice.
+"""Configuration dataclasses of the port.
 
-Field names and defaults are those of ``clap2diffusion_tpu/core/config.py``
-for the sections the port runs: the CLAP audio tower, the conditioning
-stack, the UNet, the VAE, the CLIP text encoder, the scheduler, the data
-pipeline and the training stages. Sections the port does not model yet
-(``clap.text``, ``diffusion.clip_vision``) are skipped when a YAML file or
-a dict names them. ``apply_overrides`` takes ``a.b.c=value`` strings.
+Field names and defaults are those of ``clap2diffusion_tpu/core/config.py``:
+the CLAP audio and text towers, the conditioning stack, the UNet, the VAE,
+the CLIP text and vision encoders, the scheduler, the data pipeline and the
+training stages. ``apply_overrides`` takes ``a.b.c=value`` strings.
 """
 
 from __future__ import annotations
@@ -13,9 +11,6 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
-
-# Sections of the reference config tree that the port does not model yet.
-_NOT_PORTED = {"text", "clip_vision"}
 
 
 @dataclass(frozen=True)
@@ -52,9 +47,26 @@ class HTSATConfig:
 
 
 @dataclass(frozen=True)
+class CLAPTextConfig:
+    """RoBERTa-style CLAP text tower (laion/clap-htsat-unfused geometry)."""
+
+    vocab_size: int = 50_265
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    type_vocab_size: int = 1
+    layer_norm_eps: float = 1e-12
+    projection_dim: int = 512
+    pad_token_id: int = 1
+
+
+@dataclass(frozen=True)
 class CLAPConfig:
     frontend: AudioFrontendConfig = field(default_factory=AudioFrontendConfig)
     audio: HTSATConfig = field(default_factory=HTSATConfig)
+    text: CLAPTextConfig = field(default_factory=CLAPTextConfig)
     embed_dim: int = 512
 
 
@@ -133,6 +145,20 @@ class CLIPTextConfig:
 
 
 @dataclass(frozen=True)
+class CLIPVisionConfig:
+    """OpenAI CLIP ViT-L/14 vision encoder (CLIPScore's image side)."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    projection_dim: int = 768
+    layer_norm_eps: float = 1e-5
+
+
+@dataclass(frozen=True)
 class SchedulerConfig:
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
@@ -149,6 +175,8 @@ class DiffusionConfig:
     unet: UNetConfig = field(default_factory=UNetConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
     clip_text: CLIPTextConfig = field(default_factory=CLIPTextConfig)
+    # CLIPScore / frechet_clip_vision feature extractor (evaluation only)
+    clip_vision: CLIPVisionConfig = field(default_factory=CLIPVisionConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     image_size: int = 512
 
@@ -192,7 +220,7 @@ class StageConfig:
     # the JAX package runs this many steps in one compiled call; the port
     # runs eagerly and reads it only where it changes what is logged or saved
     steps_per_call: int = 1
-    lora_rank: int = 0  # > 0 is not ported: run_stage raises
+    lora_rank: int = 0  # > 0: stage 2 trains LoRA adapters (train/lora.py)
     lora_alpha: float = 16.0
     loss_weights: Dict[str, float] = field(default_factory=dict)
 
@@ -248,14 +276,11 @@ class Config:
 
 def from_dict(cls, d: Dict[str, Any]):
     """Build a frozen dataclass tree from nested dicts. Lists become tuples
-    where the field is a tuple; sections the port does not model yet are
-    skipped; any other unknown key raises."""
+    where the field is a tuple; an unknown key raises."""
     fields = {f.name: f for f in dataclasses.fields(cls)}
     kwargs = {}
     for key, value in d.items():
         if key not in fields:
-            if key in _NOT_PORTED:
-                continue
             raise KeyError(f"unknown config key {key!r} for {cls.__name__}")
         f = fields[key]
         sub = _DATACLASSES.get(f.type if isinstance(f.type, str) else f.type.__name__)
@@ -271,8 +296,8 @@ def from_dict(cls, d: Dict[str, Any]):
 _DATACLASSES = {
     c.__name__: c
     for c in (
-        AudioFrontendConfig, HTSATConfig, CLAPConfig, ConditionConfig,
-        UNetConfig, VAEConfig, CLIPTextConfig, SchedulerConfig,
+        AudioFrontendConfig, HTSATConfig, CLAPTextConfig, CLAPConfig, ConditionConfig,
+        UNetConfig, VAEConfig, CLIPTextConfig, CLIPVisionConfig, SchedulerConfig,
         DiffusionConfig, DataConfig, StageConfig, TrainConfig, Config,
     )
 }

@@ -41,7 +41,15 @@ writes the port's checkpoint format (one ``<tower>.safetensors`` per tower
 in the type it is held in, and a ``pipeline.json``), ``load_pipeline``
 checks it against the config and builds the pipeline, and
 ``cached_init_params`` keeps random pipelines on disk under
-``C2D_PARAM_CACHE``.
+``C2D_PARAM_CACHE``. Towers beyond the core six (the evaluation and best-of
+towers ``clip_vision``, ``clip_text_projection``, ``clap_text``,
+``inception_v3``) ride along in ``pipe.extra_params`` and through the
+round trip.
+
+Best-of-n (``generate_best_of``): n candidates in one batched request with
+per-lane seeds, scored by CLIPScore against the prompt on the device
+(``clip_vision``, the CLIP text encoder and ``clip_text_projection``), the
+argmax selected there; only the winner and the n scores are fetched.
 """
 
 from __future__ import annotations
@@ -76,6 +84,12 @@ from clap2diffusion_tpu_torch.models.clap.frontend import (
 )
 from clap2diffusion_tpu_torch.models.clap.htsat import ClapAudioTower
 from clap2diffusion_tpu_torch.models.clip_text import CLIPTextEncoder
+from clap2diffusion_tpu_torch.models.clip_vision import (
+    CLIPVisionEncoder,
+    build_tower,
+    clip_text_features,
+    preprocess_images_device,
+)
 from clap2diffusion_tpu_torch.models.condition.adapter import AudioAdapter
 from clap2diffusion_tpu_torch.models.condition.hierarchical import (
     ROUTING_INIT,
@@ -92,6 +106,8 @@ MODEL_TYPES = ("hierarchical", "audio_tokens", "sonic", "baseline")
 FP32_TOWERS = ("clap_audio", "hierarchical", "adapter")
 # the towers every pipeline checkpoint holds (load_pipeline)
 CORE_TOWERS = ("clap_audio", "clip_text", "hierarchical", "adapter", "unet", "vae")
+# what best-of-n ranks with, beyond the core towers
+BEST_OF_TOWERS = ("clip_vision", "clip_text_projection")
 PIPELINE_FORMAT = "clap2diffusion_tpu_torch.pipeline.v1"
 LEVELS = ("early", "mid", "late")
 # the tags of a request's streams (stream_seed); the sampler's is the JAX
@@ -243,10 +259,11 @@ def load_pipeline(cfg: Config, path: str, dtype: Optional[torch.dtype] = None,
     unless the caller asks for the CPU). The six core towers must be there
     and match ``cfg``'s geometry, name for name and shape for shape, or
     this raises before any weight reaches the device. ``dtype`` casts the
-    towers that compute in the parameter type; ``FP32_TOWERS`` stay fp32.
-    Other towers of the checkpoint ride along untouched in
-    ``pipe.extra_params``. ``C2D_INT8_WIRE=1`` (the JAX package's int8
-    upload) is not ported and raises."""
+    towers that compute in the parameter type (``FP32_TOWERS`` stay fp32)
+    and, as the JAX ``load_pipeline`` casts every tower, the other towers of
+    the checkpoint, which ride along on the CPU in ``pipe.extra_params``.
+    ``C2D_INT8_WIRE=1`` (the JAX package's int8 upload) is not ported and
+    raises."""
     if os.environ.get("C2D_INT8_WIRE") == "1":
         raise NotImplementedError(
             "C2D_INT8_WIRE=1 (the int8 weight upload of clap2diffusion_tpu/utils/wire.py) is "
@@ -265,13 +282,10 @@ def load_pipeline(cfg: Config, path: str, dtype: Optional[torch.dtype] = None,
                              "config's geometry (structure or shapes differ) — wrong --config "
                              "for this checkpoint?")
     if dtype is not None:
-        for tower in CORE_TOWERS:
+        for tower in params:
             want = torch.float32 if tower in FP32_TOWERS else dtype
             params[tower] = {k: v.to(want) for k, v in params[tower].items()}
-    pipe = AudioToImagePipeline(cfg, params={t: params.pop(t) for t in CORE_TOWERS},
-                                device=device)
-    pipe.extra_params = params
-    return pipe
+    return AudioToImagePipeline(cfg, params=params, device=device)
 
 
 class HostCopy:
@@ -281,6 +295,7 @@ class HostCopy:
     alone, so it never waits for work enqueued after the request."""
 
     def __init__(self, img: torch.Tensor):
+        self.device_images = img  # the images on the card (best-of scores them there)
         self.host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
         self.host.copy_(img, non_blocking=True)
         self.event = torch.cuda.Event()
@@ -409,6 +424,8 @@ class AudioToImagePipeline:
     ``params`` is the dict ``convert.from_flax`` returns (per-tower state
     dicts); its UNet's type is the compute type. Without an ``"adapter"``
     entry the pipeline has no adapter, and ``model_type="sonic"`` raises.
+    Towers other than the modules' (``BEST_OF_TOWERS`` and the evaluation
+    towers) are kept as given in ``extra_params``.
     ``params=None`` initialises the whole stack at random from ``seed`` with
     a ``torch.Generator`` on the device, in ``dtype``. ``device=None`` means
     CUDA and raises when CUDA is missing; pass ``device="cpu"`` to run on
@@ -422,10 +439,12 @@ class AudioToImagePipeline:
             params = init_params(cfg, seed, dtype, self.device)
         dtype = params["unet"][next(iter(params["unet"]))].dtype
         self.compute_dtype = dtype
-        # towers of a checkpoint beyond the core ones (load_pipeline)
-        self.extra_params: Dict[str, Dict[str, torch.Tensor]] = {}
         with torch.device("meta"):
             mods = build_modules(cfg)
+        # towers beyond the modules' (the evaluation and best-of towers)
+        self.extra_params: Dict[str, Dict[str, torch.Tensor]] = {
+            k: v for k, v in params.items() if k not in mods}
+        self._scorer = None  # best-of's CLIP towers on the device, built on first use
         if "adapter" not in params:
             del mods["adapter"]
         for name, m in mods.items():
@@ -446,10 +465,11 @@ class AudioToImagePipeline:
     @property
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The pipeline's weights, tower -> state dict, as its modules hold
-        them (what ``save_pipeline`` writes and ``merge_stage_params``
-        overlays)."""
-        return {n: getattr(self, n).state_dict() for n in CORE_TOWERS
+        them, and the extra towers as given (what ``save_pipeline`` writes
+        and ``merge_stage_params`` overlays)."""
+        core = {n: getattr(self, n).state_dict() for n in CORE_TOWERS
                 if getattr(self, n) is not None}
+        return {**core, **self.extra_params}
 
     # -- host-side frontends --------------------------------------------------
 
@@ -755,3 +775,89 @@ class AudioToImagePipeline:
                 yield drain()
         while in_flight:
             yield drain()
+
+    # -- best-of-n reranked serving -------------------------------------------
+
+    def _best_of_scorer(self):
+        """(CLIP vision tower, text projection weight) on the device, built
+        once from ``extra_params``. The vision tower computes in fp32, as
+        the JAX tower promotes its weights against the fp32 pixels."""
+        src = tuple(id(self.extra_params[t]) for t in BEST_OF_TOWERS)
+        if self._scorer is None or self._scorer[0] != src:
+            vision = build_tower(CLIPVisionEncoder, self.cfg.diffusion.clip_vision,
+                                 self.extra_params["clip_vision"], self.device)
+            proj = self.extra_params["clip_text_projection"]["weight"].to(self.device)
+            self._scorer = (src, vision, proj)
+        return self._scorer[1:]
+
+    @torch.inference_mode()
+    def _select_best(self, imgs: torch.Tensor, text_ids: np.ndarray):
+        """Score candidates [n, H, W, 3] uint8 (on the device) against ONE
+        prompt by CLIPScore and select the best there: (best image
+        [H, W, 3], scores [n] fp32), both on the device."""
+        vision, proj = self._best_of_scorer()
+        px = preprocess_images_device(imgs, self.cfg.diffusion.clip_vision.image_size)
+        feats = vision(px)  # [n, proj], L2-normalised
+        ids = self._upload(text_ids)
+        tf = clip_text_features(self.clip_text(ids), ids, proj)  # [1, proj]
+        scores = torch.clamp((feats.float() * tf).sum(-1) * 100.0, min=0.0)  # CLIPScore
+        return imgs[torch.argmax(scores)], scores
+
+    def _dispatch_best_of(self, n: int, *, waveform=None, text_ids=None, uncond_ids=None,
+                          seed: int = 0, seeds=None, waveform2=None, **knobs):
+        """Enqueue best-of-n: one batched request of n candidates with
+        per-lane seeds (``seed .. seed+n-1`` unless ``seeds`` is given),
+        then the on-device score and select; no fetch in between. Returns
+        the handles (best image, scores); their ``numpy()`` fetches. One
+        sound rides once with ``batch=n``, as ``generate`` expands it (the
+        card may round the CLAP tower at batch n otherwise: ROADMAP known
+        delta 15)."""
+        if n < 1:
+            raise ValueError(f"best-of n must be >= 1, got {n}")
+        missing = set(BEST_OF_TOWERS) - set(self.extra_params)
+        if missing:
+            raise ValueError(
+                "best-of-n ranks candidates by CLIPScore and needs the CLIP vision weights "
+                f"(params missing {sorted(missing)}); convert with "
+                "clap2diffusion_tpu_torch.tools.convert_checkpoints --clip-vision")
+        if text_ids is None:
+            raise ValueError("best-of-n ranks candidates against the text prompt; a text "
+                             "prompt is required")
+        if knobs.get("init_image") is not None:
+            raise ValueError("best-of-n is unsupported with init_image (candidates need "
+                             "per-lane seeds; img2img uses the scalar seed path)")
+        if "batch" in knobs:
+            raise ValueError("best-of-n sets batch=n itself")
+        text_ids = np.asarray(text_ids, np.int32)
+        if text_ids.ndim == 1:
+            text_ids = text_ids[None]
+        if text_ids.shape[0] != 1:
+            raise ValueError(f"best-of-n takes ONE prompt, got {text_ids.shape[0]}")
+        if uncond_ids is not None:
+            uncond_ids = np.asarray(uncond_ids, np.int32)
+            if uncond_ids.ndim == 1:
+                uncond_ids = uncond_ids[None]
+            if uncond_ids.shape[0] == 1:
+                uncond_ids = np.repeat(uncond_ids, n, axis=0)
+        if seeds is None:
+            seeds = np.arange(seed, seed + n, dtype=np.int32)
+        handle = self._dispatch_generate(
+            waveform=waveform, text_ids=np.repeat(text_ids, n, axis=0), uncond_ids=uncond_ids,
+            batch=n, seed=seed, seeds=seeds, waveform2=waveform2, **knobs)
+        imgs = handle if isinstance(handle, torch.Tensor) else handle.device_images
+        best, scores = self._select_best(imgs, text_ids)
+        if not best.is_cuda:
+            return best, scores
+        with torch.inference_mode():
+            return HostCopy(best), HostCopy(scores)
+
+    def generate_best_of(self, n: int, **kw):
+        """Generate ``n`` candidates (per-lane seeds) and return ``(best
+        image [H, W, 3] uint8, clip_scores [n])``: the candidate with the
+        highest CLIPScore against the prompt, selected on the device. The
+        arguments are ``generate``'s, without ``batch``, ``init_image`` or
+        ``mask_image``. Needs the ``clip_vision`` and
+        ``clip_text_projection`` towers (the converter's
+        ``--clip-vision``)."""
+        best, scores = self._dispatch_best_of(n, **kw)
+        return best.numpy(), scores.numpy()

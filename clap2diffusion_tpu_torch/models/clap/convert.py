@@ -1,23 +1,25 @@
-"""HF CLAP weights -> the port's ``clap_audio`` state dict (counterpart of
-``clap2diffusion_tpu/models/clap/convert.py::convert_clap_audio``).
+"""HF CLAP weights -> the port's ``clap_audio`` and ``clap_text`` state dicts
+(counterpart of ``clap2diffusion_tpu/models/clap/convert.py``).
 
-Takes an HF ``ClapModel`` state dict (audio tower under
-``audio_model.audio_encoder.``) or a ``ClapAudioModelWithProjection`` one
-(under ``audio_encoder.``); the projection is ``audio_projection.`` in
-both. The port's HTSAT tower carries the HF names, so the keys are picked
-and checked as in ``models/convert.py``. The text tower
-(``text_model.*``, ``text_projection.*``), ``logit_scale_*`` and every
-other key are ignored: ``clap_text`` is not ported (ROADMAP Queue 1, item 7).
+``convert_clap_audio`` takes an HF ``ClapModel`` state dict (audio tower
+under ``audio_model.audio_encoder.``) or a ``ClapAudioModelWithProjection``
+one (under ``audio_encoder.``); the projection is ``audio_projection.`` in
+both. ``convert_clap_text`` takes the text side of a ``ClapModel``
+(``text_model.*`` or the same keys without the prefix, and
+``text_projection.*``). The port's towers carry the HF names, so the keys
+are picked and checked as in ``models/convert.py``; ``logit_scale_*`` and
+every other key are ignored.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, Mapping
 
 import torch
 
-from clap2diffusion_tpu_torch.core.config import HTSATConfig
+from clap2diffusion_tpu_torch.core.config import CLAPTextConfig, HTSATConfig
 from clap2diffusion_tpu_torch.models.clap.htsat import ClapAudioTower
+from clap2diffusion_tpu_torch.models.clap.text import ClapTextTower
 from clap2diffusion_tpu_torch.models.convert import select, template
 
 
@@ -33,6 +35,21 @@ def convert_clap_audio(sd: Mapping, cfg: HTSATConfig | None = None) -> Dict[str,
     return out
 
 
-def text_tower_keys(sd: Mapping) -> List[str]:
-    """The keys of a CLAP text tower in ``sd`` (which the port skips)."""
-    return sorted(k for k in sd if k.startswith(("text_model.", "text_projection.")))
+def has_text_tower(sd: Mapping) -> bool:
+    """Whether ``sd`` carries a CLAP text tower (the JAX converter tool's
+    test: its word embeddings, with or without ``text_model.``)."""
+    return ("text_model.embeddings.word_embeddings.weight" in sd
+            or "embeddings.word_embeddings.weight" in sd)
+
+
+def convert_clap_text(sd: Mapping, cfg: CLAPTextConfig | None = None) -> Dict[str, torch.Tensor]:
+    """HF ClapModel state dict (its text side) -> the text tower's state
+    dict."""
+    shapes = template(ClapTextTower, cfg or CLAPTextConfig())
+    full = any(k.startswith("text_model.") for k in sd)
+    model = {k[len("text_model."):]: s for k, s in shapes.items() if k.startswith("text_model.")}
+    proj = {k: s for k, s in shapes.items() if k.startswith("text_projection.")}
+    out = {"text_model." + k: v for k, v in select(
+        sd, model, "text_model." if full else "", what="CLAP text").items()}
+    out.update(select(sd, proj, what="CLAP text"))
+    return out

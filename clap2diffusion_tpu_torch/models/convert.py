@@ -36,14 +36,15 @@ def template(module_cls, *args, **kw) -> Dict[str, torch.Size]:
 
 def select(sd: Mapping, shapes: Mapping[str, torch.Size], prefix: str = "",
            what: str = "state dict") -> Dict[str, torch.Tensor]:
-    """``sd[prefix + name]`` for every name of ``shapes``, in fp32, with its
-    shape checked; other keys of ``sd`` are ignored."""
+    """``sd[prefix + name]`` (a tensor or an array) for every name of
+    ``shapes``, as an fp32 tensor, with its shape checked; other keys of
+    ``sd`` are ignored."""
     out = {}
     for name, shape in shapes.items():
         key = prefix + name
         if key not in sd:
             raise KeyError(f"{what}: missing key {key!r}")
-        t = sd[key].detach().to("cpu", torch.float32)
+        t = torch.as_tensor(sd[key]).detach().to("cpu", torch.float32)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what}: {key!r} has shape {tuple(t.shape)}, the config "
                              f"wants {tuple(shape)}")
@@ -71,3 +72,17 @@ def convert_clip_text(sd: Mapping, cfg: CLIPTextConfig | None = None) -> Dict[st
     prefix = "text_model." if any(k.startswith("text_model.") for k in sd) else ""
     return select(sd, template(CLIPTextEncoder, cfg or CLIPTextConfig()), prefix,
                   what="CLIP text")
+
+
+def convert_clip_full(sd: Mapping, text_cfg: CLIPTextConfig | None = None,
+                      vision_cfg=None):
+    """A whole transformers ``CLIPModel`` state dict -> (text state dict,
+    the ``clip_text_projection`` tower or None, vision state dict): the
+    CLIPScore towers."""
+    from clap2diffusion_tpu_torch.models.clip_vision import (
+        convert_clip_text_projection,
+        convert_clip_vision,
+    )
+
+    tproj = convert_clip_text_projection(sd) if "text_projection.weight" in sd else None
+    return convert_clip_text(sd, text_cfg), tproj, convert_clip_vision(sd, vision_cfg)

@@ -16,6 +16,12 @@ the eligible 3x3 convs (``Conv3x3``: ``conv_in``, ``conv_out``, each
 ResnetBlock's ``conv1``/``conv2`` and the ``Upsample`` conv, as in JAX) as
 the plain-PyTorch Winograd of ``ops/winograd.py``. ``C2D_INT8=1`` (the JAX
 W8A8 serving path, ``ops/quant.py``) is not ported: the forward raises.
+
+``cfg.remat`` (the JAX package's ``nn.remat`` of every ``ResnetBlock`` and
+``Transformer2D``) runs those blocks under ``torch.utils.checkpoint`` when
+autograd records: their activations are dropped after the forward and
+recomputed in the backward, kernels included. Serving (no grad) is
+unchanged.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from clap2diffusion_tpu_torch.core.config import UNetConfig
 from clap2diffusion_tpu_torch.models.condition.inject import AudioInjection
@@ -269,7 +277,7 @@ class UNet2DCondition(nn.Module):
         if os.environ.get("C2D_INT8") == "1":
             raise NotImplementedError(
                 "C2D_INT8=1 (the W8A8 serving path of clap2diffusion_tpu/ops/quant.py) is not "
-                "ported to the PyTorch package yet (ROADMAP.md, Queue 1 item 17); unset it")
+                "ported to the PyTorch package yet (ROADMAP.md, Queue 1 item 10); unset it")
         cfg = self.cfg
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(temb.to(sample.dtype))
@@ -280,30 +288,42 @@ class UNet2DCondition(nn.Module):
                 tokens = None if audio_routed is None else audio_routed.get(lvl)
                 ctx_by_level[lvl] = self.audio_inject[lvl](encoder_hidden_states, tokens)
 
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(block: nn.Module, *args) -> torch.Tensor:
+            if not remat:
+                return block(*args)
+            # the block's tensors as they are now (a caller's functional_call
+            # may have swapped them in), so that the recompute in the
+            # backward uses them; no block draws random numbers
+            state = {**dict(block.named_parameters()), **dict(block.named_buffers())}
+            return checkpoint(lambda *a: functional_call(block, state, a), *args,
+                              use_reentrant=False, preserve_rng_state=False)
+
         h = self.conv_in(sample)
         skips = [h]
         for i, blk in enumerate(self.down_blocks):
             ctx = ctx_by_level[cfg.down_block_levels[i]]
             for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
+                h = run(res, h, temb)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, ctx)
+                    h = run(blk.attentions[j], h, ctx)
                 skips.append(h)
             if blk.sampler_name is not None:
                 h = blk.sample(h)
                 skips.append(h)
 
         ctx = ctx_by_level[cfg.mid_block_level]
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, ctx)
-        h = self.mid_block.resnets[1](h, temb)
+        h = run(self.mid_block.resnets[0], h, temb)
+        h = run(self.mid_block.attentions[0], h, ctx)
+        h = run(self.mid_block.resnets[1], h, temb)
 
         for i, blk in enumerate(self.up_blocks):
             ctx = ctx_by_level[cfg.up_block_levels[i]]
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=-1), temb)
+                h = run(res, torch.cat([h, skips.pop()], dim=-1), temb)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, ctx)
+                    h = run(blk.attentions[j], h, ctx)
             h = blk.sample(h)
 
         return self.conv_out(self.conv_norm_out(h))

@@ -8,6 +8,7 @@ of ``tools/convert_checkpoints.py``).
         --clip-text /path/text_encoder/model.safetensors \
         --hierarchical /path/hierarchical_v4_final.pth \
         --adapter /path/audio_projector_stage2.pth \
+        [--clip-vision /path/clip/model.safetensors] [--inception /path/inception_v3.pth] \
         --out checkpoints/pipeline
 
 Every slot reads ``.safetensors`` (``utils/safetensors_io``, no package
@@ -17,10 +18,12 @@ the random initialisation of seed 0, drawn on ``--device`` (CUDA unless
 ``--device cpu``), and are reported. The UNet keeps that initialisation's
 audio-injection branches, which diffusers does not have. The output is a
 ``save_pipeline`` checkpoint for ``load_pipeline``, ``apps.main infer
---checkpoint`` and ``apps.server --checkpoint``. ``--clip-vision`` and
-``--inception`` (the evaluation towers) exit non-zero: they wait for
-ROADMAP Queue 1, item 7, as does the CLAP text tower, which ``--clap``
-reports and skips.
+--checkpoint`` and ``apps.server --checkpoint``. The evaluation and best-of
+towers are added when given: ``--clap`` converts a ``ClapModel``'s text
+tower too (``clap_text``; without one it stays out and the evaluator stamps
+``clap_text_random_init``), ``--clip-vision`` the CLIP vision tower (and
+``clip_text_projection`` from a whole ``CLIPModel`` dict), ``--inception``
+torchvision's InceptionV3.
 """
 
 from __future__ import annotations
@@ -33,7 +36,15 @@ import torch
 
 from clap2diffusion_tpu_torch.core.config import load_config
 from clap2diffusion_tpu_torch.diffusion.pipeline import CORE_TOWERS, init_params, save_pipeline
-from clap2diffusion_tpu_torch.models.clap.convert import convert_clap_audio, text_tower_keys
+from clap2diffusion_tpu_torch.models.clap.convert import (
+    convert_clap_audio,
+    convert_clap_text,
+    has_text_tower,
+)
+from clap2diffusion_tpu_torch.models.clip_vision import (
+    convert_clip_text_projection,
+    convert_clip_vision,
+)
 from clap2diffusion_tpu_torch.models.condition.convert import (
     convert_audio_adapter,
     convert_hierarchical_encoder,
@@ -44,9 +55,8 @@ from clap2diffusion_tpu_torch.models.convert import (
     convert_sd_unet,
     convert_sd_vae,
 )
+from clap2diffusion_tpu_torch.models.inception_v3 import convert_inception_v3
 from clap2diffusion_tpu_torch.utils.safetensors_io import load_safetensors
-
-UNPORTED_SLOTS = ("clip_vision", "inception")
 
 
 def load_sd(path: str):
@@ -68,8 +78,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--clip-text", help="transformers CLIPTextModel state dict")
     ap.add_argument("--hierarchical", help="reference hierarchical encoder .pth (soft V4)")
     ap.add_argument("--adapter", help="reference AudioAdapter .pth")
-    ap.add_argument("--clip-vision", help="not ported (ROADMAP Queue 1, item 7)")
-    ap.add_argument("--inception", help="not ported (ROADMAP Queue 1, item 7)")
+    ap.add_argument("--clip-vision", help="transformers CLIPModel / "
+                    "CLIPVisionModelWithProjection state dict (CLIPScore, best-of, "
+                    "frechet_clip_vision)")
+    ap.add_argument("--inception", help="torchvision inception_v3 state dict (FID, KID and the "
+                    "Inception Score)")
     ap.add_argument("--out", required=True, help="output pipeline checkpoint directory")
     ap.add_argument("--config", default=None, help="YAML config (needs PyYAML)")
     ap.add_argument("--device", default=None,
@@ -80,10 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    for slot in UNPORTED_SLOTS:
-        if getattr(args, slot):
-            raise SystemExit(f"--{slot.replace('_', '-')}: the evaluation towers are not ported "
-                             "to the PyTorch package yet (ROADMAP Queue 1, item 7)")
     cfg = load_config(args.config)
     params = init_params(cfg, seed=0, device=args.device)
     converted = []
@@ -91,10 +100,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         sd = load_sd(args.clap)
         params["clap_audio"] = convert_clap_audio(sd, cfg.clap.audio)
         converted.append("clap_audio")
-        skipped = text_tower_keys(sd)
-        if skipped:
-            print(f"note: --clap dict has a text tower ({len(skipped)} keys); clap_text is not "
-                  "ported (ROADMAP Queue 1, item 7): skipped")
+        # a whole ClapModel dict carries the text tower: converted too, so
+        # that the evaluator's audio_text_alignment is checkpoint-faithful
+        if has_text_tower(sd):
+            params["clap_text"] = convert_clap_text(sd, cfg.clap.text)
+            converted.append("clap_text")
+        else:
+            print("note: --clap dict has no text tower keys; clap_text left at random init "
+                  "(audio_text_alignment will be stamped clap_text_random_init)")
     if args.sd_unet:
         unet = convert_sd_unet(load_sd(args.sd_unet), cfg.diffusion.unet)
         # keep the (random) audio-injection branches: diffusers has none
@@ -115,6 +128,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         sd = unwrap(load_sd(args.adapter), "adapter_state_dict")
         params["adapter"] = convert_audio_adapter(sd, cfg.condition)
         converted.append("adapter")
+    if args.clip_vision:
+        sd = load_sd(args.clip_vision)
+        params["clip_vision"] = convert_clip_vision(sd, cfg.diffusion.clip_vision)
+        converted.append("clip_vision")
+        # a whole CLIPModel dict also carries the text projection CLIPScore needs
+        if "text_projection.weight" in sd:
+            params["clip_text_projection"] = convert_clip_text_projection(sd)
+            converted.append("clip_text_projection")
+    if args.inception:
+        params["inception_v3"] = convert_inception_v3(load_sd(args.inception))
+        converted.append("inception_v3")
 
     path = save_pipeline(args.out, params)
     missing = sorted(set(CORE_TOWERS) - set(converted))

@@ -19,6 +19,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from clap2diffusion_tpu_torch.train.lora import lora_targets_present, merge_lora
+
 _FILE = "state.pt"
 
 
@@ -103,7 +105,9 @@ def merge_stage_params(pipeline_params: Dict[str, Dict[str, torch.Tensor]],
     per-tower parameter dict for serving. The shadow covers only the
     trainable leaves ("tower.name" keys); frozen leaves come from the saved
     params, and leaves a pruned checkpoint left out from
-    ``pipeline_params``."""
+    ``pipeline_params``. A stage-2 ``"lora"`` tower (or its shadow) is
+    folded into the UNet where its target weights are present, and never
+    returned as a tower."""
     src = {tw: dict(sd) for tw, sd in payload["params"].items()}
     if use_ema:
         ema = payload.get("ema_params")
@@ -117,7 +121,16 @@ def merge_stage_params(pipeline_params: Dict[str, Dict[str, torch.Tensor]],
         src = {tw: {n: t.to(dtype) for n, t in sd.items()} for tw, sd in src.items()}
     if stage == 1:
         return {**pipeline_params, "adapter": src["adapter"]}
-    return _deep_overlay(dict(pipeline_params), src)
+    lora = src.pop("lora", None)
+    merged = _deep_overlay(dict(pipeline_params), src)
+    # stage 2 trained LoRA adapters (train/lora.py): fold them into the
+    # UNet's weights for serving; with no base weights to fold into (the
+    # export path's empty base, a pruned checkpoint on its own) the fold is
+    # skipped, as in JAX
+    unet = merged.get("unet")
+    if lora is not None and unet is not None and lora_targets_present(unet, lora):
+        merged["unet"] = merge_lora(unet, lora)
+    return merged
 
 
 def stage_from_name(name: str) -> int:

@@ -5,7 +5,10 @@
 - Stage 2 trains the hierarchical decomposer and projector and the UNet's
   audio-injection branches, with the UNet body frozen: diffusion MSE + 0.1
   orthogonality + 0.01 entropy, the assignment temperature annealed by the
-  micro-step count.
+  micro-step count. With ``train.stage2.lora_rank > 0`` it also trains LoRA
+  adapters of the cross-attention projections (``train/lora.py``), a
+  ``"lora"`` tower folded into the UNet's compute-type weights on every
+  micro-step, after the cast.
 - Stage 3 trains the leaves the JAX predicate selects (projector
   ``out_proj``/``out_norm``, every ``output_proj``; see
   ``stage3_trainable``): 2.0 diffusion + 0.5 consistency + 0.3 alignment,
@@ -51,6 +54,7 @@ from clap2diffusion_tpu_torch.models.condition.temperature import temperature_fr
 from clap2diffusion_tpu_torch.models.unet import UNet2DCondition
 from clap2diffusion_tpu_torch.ops.token_norm import rescale_to_norm
 from clap2diffusion_tpu_torch.train import losses as L
+from clap2diffusion_tpu_torch.train.lora import lora_trainable, merge_lora
 from clap2diffusion_tpu_torch.train.optim import Optimizer, ema_update
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -135,8 +139,9 @@ class Stage:
             "hierarchical": lambda: HierarchicalAudioEncoder(cfg.condition),
             "unet": lambda: UNet2DCondition(cfg.diffusion.unet),
         }
-        with torch.device("meta"):
-            self.modules: Dict[str, nn.Module] = {t: builders[t]() for t in towers}
+        with torch.device("meta"):  # the "lora" tower has no module of its own
+            self.modules: Dict[str, nn.Module] = {t: builders[t]() for t in towers
+                                                  if t in builders}
         self.schedule: Optional[NoiseSchedule] = None
 
     def create_state(self, params: Params) -> TrainState:
@@ -162,12 +167,16 @@ class Stage:
 
     def apply(self, state: TrainState, tower: str, *args, **kwargs):
         """Run a tower's module on the state's tensors; a compute-type tower
-        gets its trainable leaves cast (differentiably) on this call."""
+        gets its trainable leaves cast (differentiably) on this call, and
+        the UNet the LoRA adapters folded in after the cast, as the JAX
+        step folds them."""
         sd = state.params[tower]
         if tower in self.compute_towers:
             frozen = state.frozen_compute[tower]
             sd = {**frozen, **{n: t.to(self.compute_dtype) for n, t in sd.items()
                                if n not in frozen}}
+        if tower == "unet" and "lora" in state.params:
+            sd = merge_lora(sd, state.params["lora"])
         return functional_call(self.modules[tower], sd, args, kwargs)
 
     def loss(self, state: TrainState, batch: Dict[str, torch.Tensor],
@@ -236,8 +245,17 @@ def make_stage1_step(cfg: Config) -> Stage:
     return Stage(cfg, 1, ("adapter",), stage1_trainable, _stage1_loss)
 
 
+def stage2_lora_trainable(name: str) -> bool:
+    """Stage 2 with LoRA: the base predicate or an adapter matrix."""
+    return stage2_trainable(name) or lora_trainable(name)
+
+
 def make_stage2_step(cfg: Config) -> Stage:
-    """Hierarchical encoder + UNet injection branches; frozen UNet body."""
+    """Hierarchical encoder + UNet injection branches; frozen UNet body;
+    with ``lora_rank > 0`` the ``"lora"`` adapter tower too."""
+    if cfg.train.stage2.lora_rank > 0:
+        return Stage(cfg, 2, ("hierarchical", "unet", "lora"), stage2_lora_trainable,
+                     _stage2_loss, compute_towers=("unet",))
     return Stage(cfg, 2, ("hierarchical", "unet"), stage2_trainable, _stage2_loss,
                  compute_towers=("unet",))
 

@@ -16,9 +16,11 @@ saves only at the end of such a call. The port steps one batch at a time
 and takes those decisions at the same micro-steps (every
 ``steps_per_call`` from the start, and at the last step); it reads the
 field nowhere else. A SIGTERM or SIGINT saves ``stage{N}_preempt`` after
-the current micro-step and re-raises the signal. Multi-device training,
-LoRA (``lora_rank > 0``) and UNet rematerialisation (``remat``) are not
-ported and raise.
+the current micro-step and re-raises the signal. Stage 2 with
+``lora_rank > 0`` adds the LoRA adapter tower (``train/lora.py``); stages 1
+and 3 ignore the field, as the JAX trainer does. ``diffusion.unet.remat``
+recomputes the UNet's blocks in the backward (``models/unet.py``).
+Multi-device training is not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from clap2diffusion_tpu_torch.models.clap.htsat import ClapAudioTower
 from clap2diffusion_tpu_torch.models.clip_text import CLIPTextEncoder
 from clap2diffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 from clap2diffusion_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from clap2diffusion_tpu_torch.train.lora import init_lora
 from clap2diffusion_tpu_torch.train.stages import (
     BATCH_KEYS,
     MAKE_STAGE,
@@ -128,20 +131,20 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
     if stage not in MAKE_STAGE:
         raise ValueError(f"unknown stage {stage}")
     scfg = getattr(cfg.train, f"stage{stage}")
-    if scfg.lora_rank > 0:
-        raise NotImplementedError("train.stageN.lora_rank > 0 (LoRA adapters) is not ported "
-                                  "to the PyTorch package yet; set it to 0")
-    if stage > 1 and cfg.diffusion.unet.remat:
-        raise NotImplementedError("diffusion.unet.remat=True (UNet rematerialisation) is not "
-                                  "ported to the PyTorch package yet; set it to false")
     seed = cfg.train.seed if seed is None else seed
     data_root = data_root or cfg.data.data_root
     steps = max_steps if max_steps is not None else scfg.steps
 
     st = MAKE_STAGE[stage](cfg)
-    state = st.create_state({
-        tw: {n: t.detach().to(dev, torch.float32, copy=True) for n, t in params[tw].items()}
-        for tw in st.towers})
+    masters = {tw: {n: t.detach().to(dev, torch.float32, copy=True)
+                    for n, t in params[tw].items()} for tw in st.towers if tw != "lora"}
+    if "lora" in st.towers:
+        # stage 2 only, as in JAX; A is drawn from the seed of the JAX key
+        # (seed + 0x10A5), by a torch.Generator (ROADMAP known delta 16)
+        masters["lora"] = init_lora(
+            masters["unet"], scfg.lora_rank,
+            torch.Generator(device=dev).manual_seed(seed + 0x10A5), alpha=scfg.lora_alpha)
+    state = st.create_state(masters)
     if resume_from and checkpoint_dir:
         restore_checkpoint(checkpoint_dir, state, name=resume_from, trainable=st.trainable)
     frontend = EmbeddingFrontend(cfg, params, data_root=data_root, device=dev)

@@ -2,24 +2,31 @@
 has the same one.
 
 - the whole slice: the same synthetic published-layout artifacts (diffusers
-  UNet and VAE, transformers CLIP text, an HF ClapModel's audio tower with
-  a few text-tower keys, the reference's nested hierarchical and adapter
-  ``.pth``) through the JAX ``tools/convert_checkpoints.py`` and its
+  UNet and VAE, transformers CLIP text, an HF ClapModel with its audio and
+  text towers, the reference's nested hierarchical and adapter ``.pth``)
+  through the JAX ``tools/convert_checkpoints.py`` and its
   ``load_pipeline``, and through the port's converter tool and its
   ``load_pipeline``: every tower equals ``convert.from_flax`` of the JAX
   tree exactly (the UNet's audio-injection branches apart, which each tool
   draws at random from its own generator), and one tiny request each, with
   the JAX draws fed to the port and the JAX branches to its UNet, falls
   within ``tests/test_torch_generate.py``'s golden bounds;
+- the converter's evaluation slots (``--clip-vision``, ``--inception``)
+  against the JAX tool on the same synthetic artifacts;
 - the CLI: ``infer`` writes the PNG of ``pipe.generate``'s bits (a
-  checkpoint, ``--audio-dir``, ``--stage-checkpoint --ema``), ``export``
-  round-trips and equals the JAX export of the same weights, and what is
-  not ported exits non-zero naming its ROADMAP item;
+  checkpoint, ``--audio-dir``, ``--stage-checkpoint --ema``) and ``infer
+  --best-of 2`` the winner of ``generate_best_of``, ``evaluate`` writes
+  ``run_evaluation``'s results, ``export`` round-trips and equals the JAX
+  export of the same weights, and what is not ported exits non-zero naming
+  its ROADMAP item;
 - the server at 2 steps: ``/generate``, ``/generate_batch``, ``/healthz``,
   ``/metrics``, a coalesced group of three padded to four against
-  ``generate(seeds=..., batch=4)[:3]``, ``best_of > 1`` answering 400,
-  and the standard-library PNG encoder's output decoded with zlib;
-- ``gradio_app.build_generator`` (the click handler) without gradio.
+  ``generate(seeds=..., batch=4)[:3]``, ``best_of > 1`` answering 400
+  without the CLIP vision towers and the winner of ``generate_best_of``
+  with them, and the standard-library PNG encoder's output decoded with
+  zlib;
+- ``gradio_app.build_generator`` (the click handler) without gradio, best-of
+  included.
 
 The geometry is ``tests/test_pipeline.py::tiny_config``, in fp32 where not
 said; the whole-slice config has 4 projector and 4 adapter layers, the
@@ -65,6 +72,7 @@ from clap2diffusion_tpu_torch.utils.png import decode_png, encode_png
 from clap2diffusion_tpu_torch.utils.safetensors_io import load_safetensors, save_safetensors
 from tests.golden_utils import synth_value
 from tests.test_pipeline import tiny_config
+from tests.test_torch_eval import clap_model_sd, clip_model_sd, eval_config
 from tests.test_torch_generate import JaxDraws
 from tests.test_torch_trainer import OVERRIDES
 from tests.test_torch_weights_io import _clap_sd, _clip_sd, _unet_sd, _vae_sd
@@ -131,7 +139,8 @@ def _slice_artifacts(d, cfg, pcfg):
     save_safetensors(paths["sd_unet"], _unet_sd(cfg))
     torch.save(_vae_sd(pcfg), paths["sd_vae"])
     save_safetensors(paths["clip_text"], _clip_sd(pcfg))
-    torch.save(_clap_sd(pcfg), paths["clap"])
+    # an HF ClapModel: its audio tower and its whole text tower
+    torch.save({**_clap_sd(pcfg), **clap_model_sd(pcfg)}, paths["clap"])
     hier = {k: torch.from_numpy(synth_value("hier", k, tuple(s))) for k, s in
             template(HierarchicalAudioEncoder, pcfg.condition).items()}
     hier["decomposer.level_prior"] = torch.tensor([0.5, 0.3, 0.2])
@@ -164,13 +173,15 @@ def test_whole_slice_matches_jax(tmp_path, monkeypatch, capsys):
     pout = str(tmp_path / "port_ckpt")
     assert port_tool.main([*flags, "--out", pout, "--config", yml, "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "clap_text is not ported" in out and "random init kept" not in out
+    assert "clap_text" in out and "random init kept" not in out
 
     jpipe = jax_load_pipeline(jcfg, jout)
     want = bridge.from_flax(jax.tree.map(np.asarray, jpipe.params))
     ppipe = P.load_pipeline(pcfg, pout, device="cpu")
     got = ppipe.params
-    assert sorted(got) == sorted(want)
+    assert sorted(got) == sorted(want) and "clap_text" in want
+    # the CLAP text tower converted from --clap, as the JAX tool converts it
+    assert sorted(ppipe.extra_params) == ["clap_text"]
     for tower in want:
         assert sorted(got[tower]) == sorted(want[tower]), tower
         for k, t in want[tower].items():
@@ -314,8 +325,7 @@ def test_cli_export_matches_jax(tiny, tmp_path, stage):
 
 
 UNPORTED = {
-    "evaluate": (["evaluate", "--data-root", "x"], "item 7"),
-    "best_of": (["infer", "--best-of", "2", "--device", "cpu"], "item 7"),
+    "evaluate_shard": (["evaluate", "--shard", "--data-root", "x"], "item 9"),
     "prepare_csv": (["prepare", "--csv", "x.csv", "--out", "x"], "item 8"),
     "train_coordinator": (["train", "--stage", "2", "--coordinator", "h:1", "--device", "cpu"],
                           "item 9"),
@@ -330,11 +340,123 @@ def test_cli_unported_exits_naming_its_item(name):
     assert e.value.code not in (0, None)
 
 
+def _jax_tool():
+    spec = importlib.util.spec_from_file_location(
+        "jax_convert_checkpoints", os.path.join(ROOT, "tools", "convert_checkpoints.py"))
+    jtool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jtool)
+    return jtool
+
+
 @pytest.mark.parametrize("slot", ["--clip-vision", "--inception"])
-def test_convert_tool_unported_slots_exit(tmp_path, slot):
-    with pytest.raises(SystemExit, match="item 7"):
-        port_tool.main([slot, "x.bin", "--out", str(tmp_path / "o"), "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "o")
+def test_convert_tool_eval_slots_match_jax(tmp_path, monkeypatch, slot):
+    """The same synthetic artifact (a whole CLIPModel .safetensors; a
+    torchvision inception_v3 .pth with its aux head and num_batches_tracked)
+    through both tools: the towers equal ``from_flax`` of JAX's, exactly."""
+    from tests.test_inception import synthetic_torch_state_dict
+
+    cfg = eval_config()
+    yml = write_yaml(str(tmp_path / "eval.yaml"), cfg)
+    pcfg = C.load_config(yml)
+    if slot == "--clip-vision":
+        art = str(tmp_path / "clip.safetensors")
+        save_safetensors(art, clip_model_sd(pcfg))
+        towers = ["clip_vision", "clip_text_projection"]
+    else:
+        art = str(tmp_path / "inception.pth")
+        torch.save({k: torch.as_tensor(v) for k, v in synthetic_torch_state_dict().items()}, art)
+        towers = ["inception_v3"]
+    jout, pout = str(tmp_path / "jax_ckpt"), str(tmp_path / "port_ckpt")
+    monkeypatch.setattr(sys, "argv", ["convert_checkpoints", slot, art, "--out", jout,
+                                      "--config", yml])
+    assert _jax_tool().main() == 0
+    assert port_tool.main([slot, art, "--out", pout, "--config", yml, "--device", "cpu"]) == 0
+    want = bridge.from_flax(jax.tree.map(np.asarray, jax_load_pipeline(
+        jax_load_config(yml), jout).params))
+    got = P.load_pipeline(pcfg, pout, device="cpu").extra_params
+    assert sorted(got) == sorted(towers)
+    for tower in towers:
+        assert sorted(got[tower]) == sorted(want[tower]), tower
+        for k, t in want[tower].items():
+            assert torch.equal(got[tower][k], t), (tower, k)
+
+
+@pytest.fixture(scope="module")
+def eval_ck(tmp_path_factory):
+    """The tiny config with a tiny CLIP vision tower, as YAML, and a
+    checkpoint of it with every evaluation tower (converted from synthetic
+    published-layout dicts by the port's converters), on a fixture dataset
+    of three test samples with PNG reference frames."""
+    from clap2diffusion_tpu_torch.data.fixtures import make_fixture_dataset
+    from clap2diffusion_tpu_torch.models.clap.convert import convert_clap_text
+    from clap2diffusion_tpu_torch.models.clip_vision import (
+        convert_clip_text_projection,
+        convert_clip_vision,
+    )
+    from clap2diffusion_tpu_torch.models.inception_v3 import convert_inception_v3
+    from tests.test_inception import synthetic_torch_state_dict
+
+    d = tmp_path_factory.mktemp("eval_apps")
+    yml = write_yaml(str(d / "eval.yaml"), eval_config())
+    pcfg = C.load_config(yml)
+    clip = clip_model_sd(pcfg)
+    params = {**P.init_params(pcfg, seed=5, device="cpu"),
+              "clip_vision": convert_clip_vision(clip, pcfg.diffusion.clip_vision),
+              "clip_text_projection": convert_clip_text_projection(clip),
+              "clap_text": convert_clap_text(clap_model_sd(pcfg), pcfg.clap.text),
+              "inception_v3": convert_inception_v3(synthetic_torch_state_dict())}
+    ck = P.save_pipeline(str(d / "ck"), params)
+    root = str(d / "data")
+    meta = make_fixture_dataset(root, n_train=1, n_val=1, n_test=3, duration_s=0.5,
+                                latent_hw=8)
+    os.makedirs(os.path.join(root, "frames"))
+    rng = np.random.default_rng(7)
+    for smp in meta["samples"]:
+        with open(os.path.join(root, "frames", f"{smp['id']}.png"), "wb") as f:
+            f.write(encode_png(rng.integers(0, 256, (64, 64, 3)).astype(np.uint8)))
+    return pcfg, yml, ck, root
+
+
+def test_cli_evaluate_writes_run_evaluation(eval_ck, tmp_path, capsys):
+    from clap2diffusion_tpu_torch.eval.evaluate import run_evaluation
+
+    pcfg, yml, ck, root = eval_ck
+    out = str(tmp_path / "results.json")
+    assert M.main(["evaluate", "--config", yml, "--checkpoint", ck, "--data-root", root,
+                   "--max-samples", "3", "--steps", "2", "--fid-variant", "pytorch_fid",
+                   "--output", out, "--device", "cpu"]) == 0
+    assert "wrote" in capsys.readouterr().out
+    with open(out) as f:
+        got = json.load(f)
+    want = run_evaluation(pcfg, data_root=root, max_samples=3, num_steps=2,
+                          params=P.load_pipeline(pcfg, ck, device="cpu").params,
+                          fid_variant="pytorch_fid", device="cpu")
+    assert got["clap_text_random_init"] is False and got["summary"]["fid_variant"] == "pytorch_fid"
+    for key in ("audio_text_alignment", "clip_score", "image_std"):
+        assert got["summary"][key] == want["summary"][key], key
+    for key in ("fid", "frechet_clip_vision", "kid", "inception_score"):
+        assert got["summary"][key] == want["summary"][key], key
+    assert [r["id"] for r in got["samples"]] == [r["id"] for r in want["samples"]]
+
+
+def test_cli_infer_best_of_writes_the_winner(eval_ck, tmp_path, capsys):
+    pcfg, yml, ck, _ = eval_ck
+    audio = wav_file(str(tmp_path / "a.wav"), 1)
+    out = str(tmp_path / "best.png")
+    assert M.main(["infer", "--config", yml, "--checkpoint", ck, "--audio", audio,
+                   "--text", "rain on a roof", "--steps", "2", "--seed", "3", "--best-of", "2",
+                   "--dtype", "float32", "--output", out, "--device", "cpu"]) == 0
+    assert "best of 2" in capsys.readouterr().out
+    pipe = P.load_pipeline(pcfg, ck, dtype=torch.float32, device="cpu")
+    tok = _tok()
+    best, scores = pipe.generate_best_of(2, waveform=pipe.load_audio(audio),
+                                         text_ids=tok("rain on a roof"), uncond_ids=tok(""),
+                                         num_steps=2, seed=3)
+    with open(out, "rb") as f:
+        assert np.array_equal(decode_png(f.read()), best)
+    with pytest.raises(SystemExit, match="--text is required"):
+        M.main(["infer", "--config", yml, "--checkpoint", ck, "--best-of", "2", "--steps", "1",
+                "--device", "cpu"])
 
 
 def test_cli_defaults_to_cuda_and_prepares_fixtures(tiny, tmp_path):
@@ -418,9 +540,10 @@ def test_server_endpoints(server_pipe, tmp_path):
         for b64, w in zip(out["images_b64"], want):
             assert np.array_equal(decode_png(base64.b64decode(b64)), w)
 
-        with pytest.raises(urllib.error.HTTPError) as e:
+        with pytest.raises(urllib.error.HTTPError) as e:  # no CLIP vision towers here
             _post(port, "/generate", {"text": "x", "steps": 2, "best_of": 2})
-        assert e.value.code == 400 and "item 7" in json.loads(e.value.read())["error"]
+        assert e.value.code == 400 and "needs the CLIP vision weights" in json.loads(
+            e.value.read())["error"]
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
             m = json.loads(r.read())
         assert m["requests"] == 4 and m["errors"] == 1 and m["images"] == 5
@@ -497,9 +620,57 @@ def test_gradio_generator_without_gradio(server_pipe, tmp_path):
                          uncond_ids=tok(""), num_steps=2, guidance_scale=7.5, norm_target=60.0,
                          seed=3, sampler="ddim")
     assert np.array_equal(img, want[0]) and "steps=2" in info and "seed=3" in info
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="needs the CLIP vision weights"):
         generate(path, "x", "Hierarchical V4", norm_value=60, steps=2, cfg_scale=7.5, seed=3,
                  best_of=2)
     if importlib.util.find_spec("gradio") is None:
         with pytest.raises(SystemExit, match="gradio is not installed"):
             launch(pipe.cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def best_of_pipe(eval_ck):
+    pcfg, _, ck, _ = eval_ck
+    return P.load_pipeline(pcfg, ck, device="cpu")
+
+
+def test_server_best_of_answers_the_winner(best_of_pipe, tmp_path):
+    pipe = best_of_pipe
+    server, thread = _running(InferenceService(pipe=pipe, coalesce_ms=500))
+    port = server.server_address[1]
+    try:
+        path = wav_file(str(tmp_path / "a.wav"), 4)
+        with open(path, "rb") as f:
+            audio = base64.b64encode(f.read()).decode()
+        out = _post(port, "/generate", {"audio_b64": audio, "text": "a dog barks", "steps": 2,
+                                        "seed": 3, "best_of": 2})
+        tok = _tok()
+        best, scores = pipe.generate_best_of(2, waveform=pipe.load_audio(path),
+                                             text_ids=tok("a dog barks"), uncond_ids=tok(""),
+                                             num_steps=2, seed=3)
+        assert np.array_equal(decode_png(base64.b64decode(out["image_b64"])), best)
+        assert out["info"]["best_of"] == 2 and "coalesced_batch" not in out["info"]
+        assert out["info"]["clip_scores"] == [round(float(v), 4) for v in scores]
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(port, "/generate", {"text": "x", "steps": 2, "best_of": 2,
+                                      "init_image_b64": "aGk="})
+        assert e.value.code == 400 and "init/mask" in json.loads(e.value.read())["error"]
+    finally:
+        _stop(server, thread)
+
+
+def test_gradio_best_of(best_of_pipe, tmp_path):
+    from clap2diffusion_tpu_torch.apps.gradio_app import build_generator
+
+    pipe = best_of_pipe
+    path = wav_file(str(tmp_path / "a.wav"), 5)
+    generate = build_generator(pipe.cfg, pipe=pipe)
+    img, info = generate(path, "a dog barks", "Hierarchical V4", norm_value=60, steps=2,
+                         cfg_scale=7.5, seed=3, best_of=2)
+    tok = _tok()
+    best, scores = pipe.generate_best_of(2, waveform=pipe.load_audio(path),
+                                         text_ids=tok("a dog barks"), uncond_ids=tok(""),
+                                         num_steps=2, guidance_scale=7.5, norm_target=60.0,
+                                         seed=3, sampler="ddim")
+    assert np.array_equal(img, best)
+    assert "best_of=2" in info and f"clip_scores={[round(float(v), 2) for v in scores]}" in info

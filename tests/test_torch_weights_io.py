@@ -224,8 +224,9 @@ def test_convert_clap_audio_matches_jax(tiny, full):
     sd = _clap_sd(pcfg, full)
     want = bridge.clap_audio_from_flax(jclap.convert_clap_audio(sd, cfg.clap.audio))
     equal_dicts(pclap.convert_clap_audio(sd, pcfg.clap.audio), want)
-    assert pclap.text_tower_keys(sd) == ["text_model.encoder.layer.0.attention.self.query.weight",
-                                         "text_projection.linear1.weight"]
+    # a few text-tower keys without its word embeddings: no text tower to
+    # convert, as the JAX converter tool decides
+    assert not pclap.has_text_tower(sd)
 
 
 @pytest.mark.parametrize("adaptive", [True, False])
