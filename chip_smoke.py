@@ -153,6 +153,32 @@ Phases (each raises on failure, so the exit code is non-zero):
   6. Small training reference: one stage-2 micro-step of the small
      configuration in fp32 on the card (TF32 off, kernels on) against the
      same step on the CPU: loss and the gradient of every trainable leaf.
+  6a. Prepare and encode: synthetic AudioCaps sources (WAVs at 44.1 and
+     48 kHz, a FLAC from tests/flac_fixture.py, an mp3 when the system has
+     libmp3lame to write one) and a CSV through ``apps.main prepare --csv``,
+     then ``prepare --encode-latents`` on 8 PNG frames at 512² (phase 3's
+     and 3c's images), batch 8, TF32 off: the native audio library's path and build seconds, the loader
+     each source took, its decode time against the numpy path; exactly one
+     chunk's launches (1 flash at [8, 1, 4096, 512], 21 GN+SiLU, 1 GN, fp32);
+     each latent against the CPU encode of the same frame in fp32 with the
+     same weights and draws, within LATENT_TOL of max|cpu|; the kernels at
+     the chunk's new shapes (fp32) against their plain versions.
+  6b. One rank over NCCL: ``apps.main train --stage 2 --coordinator
+     127.0.0.1:<port> --num-processes 1 --process-id 0`` for 4 micro-steps on
+     phase 5's data, against the same ``run_stage`` without a process group:
+     losses and the saved parameters bit for bit, the launches per
+     micro-step exact. Then ``evaluate --shard`` on phase 3f's 4 samples
+     (10 steps): each image ``generate(seeds=[42])`` of its sample, bit for
+     bit. The process group is destroyed afterwards.
+  6c. Two ranks on the one card over Gloo (NCCL refuses two ranks on one
+     device): two processes of this script run a data-parallel stage-2
+     ``run_stage`` (data = 2, batch 4 each, 4 micro-steps) on ``cuda:0``;
+     after every micro-step both ranks report the same losses and hold
+     bit-identical trainable parameters (a digest), with exact launches.
+     The run saves checkpoints, so the ranks agree on a preemption signal
+     after every micro-step; each rank then times that agreement (a MAX
+     all-reduce of one integer over Gloo, median of 50). A rank that fails
+     fails the run.
 
 Timing: CUDA events around repeated launches after a warm-up (inputs stay
 in L2 where they fit, as they do on the path, where the producer just wrote
@@ -895,19 +921,21 @@ def small_training_reference(card="cuda", gen_seed=5):
 
 
 def check_new_shapes(seen, checked, gen):
-    """The flash and GroupNorm kernels (bf16, untimed) at every shape of
-    ``seen`` (kernel -> shape counts) that no earlier phase checked; the
-    worst errors and how many shapes were new."""
+    """The flash and GroupNorm kernels (untimed, in the type each call had)
+    at every shape of ``seen`` (kernel -> shape counts) that no earlier phase
+    checked; the worst errors and how many shapes were new."""
     errs = {"flash_attention_fwd": 0.0, "group_norm_silu": 0.0, "group_norm": 0.0}
     fresh = 0
     for kind, shapes in seen.items():
         for key in set(shapes) - checked[kind]:
             fresh += 1
             if kind == "flash_attention":
-                r = flash_case(key[0], key[1], torch.bfloat16, gen, timed=False)
+                dtype = getattr(torch, key[2].removeprefix("torch."))
+                r = flash_case(key[0], key[1], dtype, gen, timed=False)
                 errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], r["max_abs_err"])
             else:
-                r = gn_case(kind, key[0], torch.bfloat16, key[2], key[3], gen, timed=False)
+                dtype = getattr(torch, key[1].removeprefix("torch."))
+                r = gn_case(kind, key[0], dtype, key[2], key[3], gen, timed=False)
                 errs[kind] = max(errs[kind], r["max_abs_err"])
             checked[kind].add(key)
     return errs, fresh
@@ -1017,6 +1045,405 @@ def generate_phase(pipe, wav, text, uncond, first_img, checked, card):
          "shapes_first_checked_here": fresh, "errs": errs,
          "sm_clock,power_draw,temperature_after": smi("clocks.sm,power.draw,temperature.gpu")})
     return {"rows": rows, "errs": errs, "launches": launches, "images": images}
+
+
+# Phase 6a: one chunk of 8 frames through the VAE encoder (phase 2e's census
+# at batch 1, at batch 8); its latents on the card against the CPU, fp32
+ENCODE_LAUNCHES = {"flash_attention": 1, "group_norm_silu": 21, "group_norm": 1}
+ENCODE_FRAMES = 8
+LATENT_TOL = 1e-3  # of max|cpu|
+DIST_STEPS = 4  # micro-steps of phases 6b and 6c
+SHARD_EVAL_STEPS = 10
+
+
+def test_fixture(name):
+    """A numpy-only module of this checkout's tests/ (by path: another
+    installed package may be called ``tests``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"c2d_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def prepare_phase(frames, checked, card):
+    """Phase 6a: synthetic sources and a CSV through ``prepare --csv
+    --encode-latents`` on the card; each latent against the CPU encode."""
+    from clap2diffusion_tpu_torch.data import prepare as PPrep
+    from clap2diffusion_tpu_torch.models.vae import AutoencoderKL
+    from clap2diffusion_tpu_torch.utils import audio_io as AIO
+    from clap2diffusion_tpu_torch.utils import native_audio as NA
+    from clap2diffusion_tpu_torch.utils.png import encode_png
+
+    write_flac = test_fixture("flac_fixture").write_flac
+    write_mp3 = test_fixture("mp3_fixture").write_mp3
+    tmp = tempfile.mkdtemp(prefix="c2d_prepare_")
+    try:
+        t0 = time.perf_counter()
+        NA.load_library()  # built here, before any rank of 6c could race for it
+        lib = {"path": NA.BUILD_INFO.get("path"), "build_s": NA.BUILD_INFO.get("seconds"),
+               "load_s": time.perf_counter() - t0}
+        src, frames_dir = os.path.join(tmp, "src"), os.path.join(tmp, "frames")
+        os.makedirs(src)
+        os.makedirs(frames_dir)
+        rng = np.random.default_rng(10)
+
+        def tone(sr, seconds):
+            t = np.arange(int(sr * seconds)) / sr
+            return (0.4 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.normal(size=t.size)
+                    ).astype(np.float32)
+
+        # 44.1 kHz sources are short: prepare resamples with the numpy
+        # polyphase filter, as the JAX package does, at ~1e10 MACs a second
+        # of audio
+        sources = {"wav48": ("wav", 48_000, 10.0), "wav44": ("wav", 44_100, 0.2),
+                   "flac48": ("flac", 48_000, 10.0), "flac44": ("flac", 44_100, 0.2),
+                   "mp3": ("mp3", 44_100, 0.2)}
+        written = {}
+        for sid, (kind, sr, seconds) in sources.items():
+            x = tone(sr, seconds)
+            path = os.path.join(src, f"{sid}.{kind}")
+            if kind == "wav":
+                AIO.write_wav(path, x, sr)
+            elif kind == "flac":
+                write_flac(path, (x * 32767).astype(np.int16), sr, kind="lpc2")
+            elif not write_mp3(path, x, sr):
+                continue  # no libmp3lame: no mp3 source
+            written[sid] = path
+        loaders, decode = {}, {}
+        for sid, path in written.items():
+            kind = sources[sid][0]
+            if kind == "wav":
+                loaders[sid] = "numpy read_wav"
+            else:
+                try:
+                    NA.decode_audio(path)
+                    loaders[sid] = "native " + ("FLAC" if kind == "flac" else "libmpg123")
+                except ValueError as e:  # mp3 without the system codec: ffmpeg or nothing
+                    import shutil as _sh
+
+                    loaders[sid] = ("ffmpeg" if _sh.which("ffmpeg") else f"unreadable: {e}")
+            t0 = time.perf_counter()
+            NA.load_audio(path, 48_000, 480_000)
+            decode[sid] = {"audio_s": sources[sid][2], "native_s": time.perf_counter() - t0}
+            if kind == "wav":
+                t0 = time.perf_counter()
+                NA._fallback_one(path, 48_000, 480_000, False)
+                decode[sid]["numpy_s"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "a.csv"), "w") as f:
+            f.write("youtube_id,caption,start_time\n")
+            for sid in sources:
+                f.write(f"{sid},a tone from {sid},0\n")
+        ids = [f"frame_{i}" for i in range(ENCODE_FRAMES)]
+        for fid, img in zip(ids, frames):
+            with open(os.path.join(frames_dir, f"{fid}.png"), "wb") as f:
+                f.write(encode_png(img))
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        M.main(["prepare", "--csv", os.path.join(tmp, "a.csv"), "--audio-dir", src,
+                "--out", out])
+        csv_s = time.perf_counter() - t0
+        # the CLI under PyTorch's defaults (cuDNN may take fp32 convolutions
+        # to TF32), as a user runs it: encode_latents holds its fp32 encode
+        # to full precision in its own scope and restores the flags
+        smoke_flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M.main(["prepare", "--out", out, "--encode-latents", "--frames-dir", frames_dir])
+            torch.cuda.synchronize()
+            encode_s = time.perf_counter() - t0
+            after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = smoke_flags
+        if after != (True, False):
+            raise AssertionError(f"encode_latents left the TF32 flags at {after}")
+        launches = {k: v for k, v in counts().items() if k in ENCODE_LAUNCHES}
+        if launches != ENCODE_LAUNCHES:
+            raise AssertionError(f"prepare --encode-latents: launches {launches}, "
+                                 f"want {ENCODE_LAUNCHES}")
+        seen = {fn.__name__: dict(fn.shapes)
+                for fn in (fa.flash_attention, gn.group_norm_silu, gn.group_norm)}
+        mid = (ENCODE_FRAMES, 1, 4096, 512)  # the mid-block attention, one chunk
+        if seen["flash_attention"] != {(mid, mid, "torch.float32"): 1}:
+            raise AssertionError(f"prepare --encode-latents: flash at "
+                                 f"{seen['flash_attention']}, want {mid} fp32 once")
+        with open(os.path.join(out, "metadata_unified.json")) as f:
+            meta = json.load(f)
+        readable = {sid for sid, how in loaders.items() if not how.startswith("unreadable")}
+        if sorted(s_["id"] for s_ in meta["samples"]) != sorted(readable):
+            raise AssertionError(f"prepare: samples {meta['samples']}, readable {readable}")
+        for s_ in meta["samples"]:
+            wav, sr = AIO.read_wav(os.path.join(out, "audio", f"{s_['id']}.wav"))
+            if sr != 48_000 or wav.shape != (480_000,) or not 0.9 < np.abs(wav).max() <= 1.0:
+                raise AssertionError(f"prepare: {s_['id']} gave {wav.shape} at {sr} Hz")
+
+        # the CPU encode of the same frames: the weights and the draws of the card's run
+        with torch.device("meta"):
+            vae = AutoencoderKL(C.VAEConfig())
+        vae.to_empty(device="cuda")
+        random_init_(vae, torch.Generator(device="cuda").manual_seed(0), {})
+        cpu_sd = {k: v.cpu() for k, v in vae.state_dict().items()}
+        del vae
+        noise = PPrep.latent_draws(0, "cuda")((ENCODE_FRAMES, 64, 64, 4)).cpu()
+        inner = PPrep.latent_draws
+        PPrep.latent_draws = lambda seed, device: (lambda shape: noise)
+        try:
+            t0 = time.perf_counter()
+            PPrep.encode_latents(os.path.join(tmp, "cpu"), frames_dir=frames_dir,
+                                 vae_params=cpu_sd, device="cpu")
+            cpu_s = time.perf_counter() - t0
+        finally:
+            PPrep.latent_draws = inner
+        worst = 0.0
+        for fid in ids:
+            got = np.load(os.path.join(out, "latents", f"{fid}.npy"))
+            want = np.load(os.path.join(tmp, "cpu", "latents", f"{fid}.npy"))
+            if got.shape != (4, 64, 64) or not np.isfinite(got).all():
+                raise AssertionError(f"encode_latents: {fid} latent {got.shape}")
+            worst = max(worst, float(np.abs(got - want).max() / np.abs(want).max()))
+        if worst > LATENT_TOL:
+            raise AssertionError(f"encode_latents: card vs CPU {worst:.3g} of max|cpu| > "
+                                 f"{LATENT_TOL}")
+        errs, fresh = check_new_shapes(seen, checked,
+                                       torch.Generator(device="cuda").manual_seed(6))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "prepare_encode", "card": card, "native_library": lib,
+           "mp3_source": "mp3" in written, "loaders": loaders, "decode_to_48k": decode,
+           "samples": len(meta["samples"]), "prepare_csv_cli_s": csv_s,
+           "encode_latents_cli_s": encode_s,
+           "encode_s_per_frame": encode_s / ENCODE_FRAMES, "cpu_encode_s": cpu_s,
+           "launches": launches, "shapes": {k: [list(key[0]) for key in v]
+                                            for k, v in seen.items()},
+           "latent_card_vs_cpu_of_max": worst, "tolerance": LATENT_TOL,
+           "shapes_first_checked_here": fresh, "errs": errs}
+    log(row)
+    return row
+
+
+def record_steps(records):
+    """A ``train_step`` that logs each micro-step's losses, launches, time
+    and a digest of the trainable leaves into ``records``."""
+    import hashlib
+
+    inner = T.train_step
+
+    def step(st, state, batch, generator, mesh=None):
+        torch.cuda.synchronize()
+        before, t0 = counts(), time.perf_counter()
+        metrics = (inner(st, state, batch, generator) if mesh is None else
+                   inner(st, state, batch, generator, mesh=mesh))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = counts()
+        digest = hashlib.sha256()
+        for name, t in sorted(state.trainable_leaves().items()):
+            digest.update(name.encode() + t.detach().cpu().numpy().tobytes())
+        records.append({"seconds": seconds, "launches": {k: after[k] - before[k] for k in after},
+                        "losses": {k: float(v) for k, v in metrics.items()},
+                        "digest": digest.hexdigest()})
+        return metrics
+    return step
+
+
+def step_launches(records):
+    want = LORA_STEP_LAUNCHES[False]
+    for i, r in enumerate(records):
+        got = {k: r["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"micro-step {i}: launches {got}, want {want}")
+    return want
+
+
+def nccl_phase(cfg, data_root, eval_ctx, card):
+    """Phase 6b: the CLI's ``train --coordinator`` as one NCCL rank against
+    ``run_stage`` without a process group, bit for bit; ``evaluate --shard``
+    on phase 3f's data against ``generate(seeds=[42])``."""
+    import torch.distributed as dist
+
+    from clap2diffusion_tpu_torch.data.latent_dataset import AudioCapsLatentDataset
+    from clap2diffusion_tpu_torch.diffusion import pipeline as PP
+    from clap2diffusion_tpu_torch.parallel import distributed as PD
+
+    tmp = tempfile.mkdtemp(prefix="c2d_nccl_")
+    inner = T.train_step
+    try:
+        runs, walls = {}, {}
+        for name in ("plain", "nccl"):
+            records = runs[name] = []
+            T.train_step = record_steps(records)
+            ck = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            if name == "plain":
+                T.run_stage(cfg, 2, init_params(cfg, seed=cfg.train.seed, device="cuda"),
+                            data_root=data_root, max_steps=DIST_STEPS, checkpoint_dir=ck,
+                            log_dir=os.path.join(tmp, "logs"))
+            else:
+                cwd = os.getcwd()
+                os.chdir(tmp)  # the CLI logs to the config's relative log_dir
+                try:
+                    M.main(["train", "--stage", "2", "--data-root", data_root, "--max-steps",
+                            str(DIST_STEPS), "--checkpoint-dir", ck, "--coordinator",
+                            f"127.0.0.1:{free_port()}", "--num-processes", "1",
+                            "--process-id", "0"])
+                finally:
+                    os.chdir(cwd)
+                if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                        and dist.get_world_size() == 1):
+                    raise AssertionError("train --coordinator did not join an NCCL group")
+            walls[name] = time.perf_counter() - t0
+            T.train_step = inner
+        launches = step_launches(runs["nccl"])
+        if [r["losses"] for r in runs["nccl"]] != [r["losses"] for r in runs["plain"]] or \
+                [r["digest"] for r in runs["nccl"]] != [r["digest"] for r in runs["plain"]]:
+            raise AssertionError("train --coordinator (one NCCL rank) differs from run_stage: "
+                                 f"{runs}")
+        a = load_torch_checkpoint(os.path.join(tmp, "plain", "stage2_final", "state.pt"))
+        b = load_torch_checkpoint(os.path.join(tmp, "nccl", "stage2_final", "state.pt"))
+        if not all(torch.equal(t, b["params"][tw][n]) for tw, sd in a["params"].items()
+                   for n, t in sd.items()):
+            raise AssertionError("train --coordinator: the saved parameters differ")
+
+        # evaluate --shard on phase 3f's samples and checkpoint
+        captured, gs = [], PP.generate_sharded
+
+        def capture(*args, **kw):
+            imgs = gs(*args, **kw)
+            captured.append(imgs)
+            return imgs
+
+        PP.generate_sharded = capture
+        try:
+            out = os.path.join(tmp, "shard.json")
+            reset_counts()
+            t0 = time.perf_counter()
+            M.main(["evaluate", "--shard", "--checkpoint", eval_ctx["ck"], "--data-root",
+                    eval_ctx["root"], "--max-samples", str(EVAL_SAMPLES), "--steps",
+                    str(SHARD_EVAL_STEPS), "--output", out])
+            shard_s = time.perf_counter() - t0
+        finally:
+            PP.generate_sharded = gs
+        with open(out) as f:
+            res = json.load(f)
+        pipe = load_pipeline(cfg, eval_ctx["ck"], device="cuda")
+        tok = CLIPTokenizer(max_length=cfg.diffusion.clip_text.max_length)
+        ds = AudioCapsLatentDataset(eval_ctx["root"], split="test",
+                                    audio_duration=cfg.data.duration_s,
+                                    sample_rate=cfg.data.sample_rate,
+                                    latent_hw=cfg.data.latent_shape[1])
+        if len(captured) != EVAL_SAMPLES or not res["config"]["shard"]:
+            raise AssertionError(f"evaluate --shard: {len(captured)} groups, {res['config']}")
+        for i, imgs in enumerate(captured):
+            item = ds[i]
+            want = pipe.generate(item["audio"], tok(item["caption"]), tok(""),
+                                 num_steps=SHARD_EVAL_STEPS, seed=42, seeds=[42])
+            if not np.array_equal(imgs, want):
+                raise AssertionError(f"evaluate --shard: sample {i} differs from "
+                                     f"generate(seeds=[42]) by {image_diff(imgs, want)}")
+        del pipe
+        dist.destroy_process_group()
+        PD._INITIALIZED = False
+    finally:
+        T.train_step = inner
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_s = {k: [r["seconds"] for r in v] for k, v in runs.items()}
+    row = {"phase": "nccl_one_rank", "card": card, "micro_steps": DIST_STEPS,
+           "micro_step_s": step_s, "run_stage_wall_s": walls,
+           "launches_per_micro_step": launches, "losses_last": runs["nccl"][-1]["losses"],
+           "bit_equal": True, "evaluate_shard_s": shard_s, "evaluate_shard_timings":
+           res["timings"], "evaluate_shard_images_bit_equal": EVAL_SAMPLES}
+    log(row)
+    return row
+
+
+def gloo_worker(rank, port, out, data_root):
+    """One rank of phase 6c (``chip_smoke.py --gloo-rank R PORT OUT DATA``)."""
+    import torch.distributed as dist
+
+    # Gloo, since NCCL refuses a second rank on one card; run_stage's own
+    # initialize_distributed then finds the group and leaves it as it is
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    cfg = C.Config()
+    records = []
+    T.train_step = record_steps(records)
+    reset_counts()
+    T.run_stage(cfg, 2, init_params(cfg, seed=0, device="cuda"), data_root=data_root,
+                max_steps=DIST_STEPS, checkpoint_dir=os.path.join(out, "ck"),
+                log_dir=os.path.join(out, f"logs{rank}"), seed=0)
+    # what run_stage's preemption agreement costs a micro-step: one MAX
+    # all-reduce of one integer on the host
+    flag, flag_s = torch.zeros(1, dtype=torch.int64), []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        flag_s.append(time.perf_counter() - t0)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"records": records, "device": str(torch.cuda.current_device()),
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "flag_allreduce_ms_median": 1e3 * float(np.median(flag_s))}, f)
+    return 0
+
+
+def gloo_phase(data_root, card):
+    """Phase 6c: two data-parallel ranks of stage 2 on the one card over
+    Gloo, replicas and losses compared after every micro-step."""
+    tmp = tempfile.mkdtemp(prefix="c2d_gloo_")
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank",
+                               str(r), port, tmp, data_root], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    outs = []
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    try:
+        if any(p.returncode for p in procs):
+            text = "\n".join(o[-3000:] for o in outs)
+            raise AssertionError(f"phase 6c: a rank failed:\n{text}")
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = (x["records"] for x in ranks)
+    if len(a) != DIST_STEPS or len(b) != DIST_STEPS:
+        raise AssertionError(f"phase 6c: {len(a)} and {len(b)} micro-steps")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x["losses"] != y["losses"] or x["digest"] != y["digest"]:
+            raise AssertionError(f"phase 6c micro-step {i}: the ranks differ: {x} {y}")
+    launches = step_launches(a)
+    step_launches(b)
+    row = {"phase": "gloo_two_ranks", "card": card, "micro_steps": DIST_STEPS,
+           "devices": [x["device"] for x in ranks], "wall_s": wall,
+           "micro_step_s": [[r["seconds"] for r in x["records"]] for x in ranks],
+           "peak_mem_gb": [x["peak_mem_gb"] for x in ranks],
+           "flag_allreduce_ms_median": [x["flag_allreduce_ms_median"] for x in ranks],
+           "launches_per_micro_step": launches, "losses": [r["losses"] for r in a],
+           "replicas_bit_identical": True}
+    log(row)
+    return row
 
 
 # Phase 3d: a 50-step request makes 751 flash, 2,279 GN+SiLU and 801 GN
@@ -1479,7 +1906,8 @@ def evaluation_phase(pipe, frames, card, p50, dev="cuda", samples=EVAL_SAMPLES, 
     variant) and CLAP text weights drawn on the card, ``frames`` as PNG
     reference frames; every metric computed and finite, exact launches,
     each metric tower against its fp32 CPU output on 2 inputs, and the
-    ``evaluate`` CLI on the same data."""
+    ``evaluate`` CLI on the same data, whose directory (``tmp``: the data
+    ``root`` and the checkpoint ``ck``) the caller removes."""
     from clap2diffusion_tpu_torch.eval.evaluate import run_evaluation
     from clap2diffusion_tpu_torch.models.clap.text import ClapTextTower
     from clap2diffusion_tpu_torch.models.inception_v3 import (
@@ -1575,15 +2003,19 @@ def evaluation_phase(pipe, frames, card, p50, dev="cuda", samples=EVAL_SAMPLES, 
         if [r["id"] for r in cli["samples"]] != [r["id"] for r in res["samples"]] or \
                 any(v > 1e-4 * max(1.0, abs(s[k]["mean"])) for k, v in cli_diff.items()):
             raise AssertionError(f"evaluate CLI: {cli['summary']} vs run_evaluation {s}")
-    finally:
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
     log({"phase": "evaluation", "card": card, "samples": samples, "wall_s": wall,
          "p50_s": p50, "timings": res["timings"], "metrics": values, "launches": got,
          "tower_card_vs_cpu_of_max": towers, "tower_tol": TOWER_TOL,
          "evaluate_cli_wall_s": cli_wall, "evaluate_cli_vs_run_evaluation": cli_diff,
          "stamps": {k: res[k] for k in ("tokenizer_fallback", "roberta_fallback",
                                         "clap_text_random_init")}})
-    return {"launches": got, "timings": res["timings"], "metrics": values}
+    # the data and the checkpoint stay for phase 6b's evaluate --shard (the
+    # caller removes ``tmp``)
+    return {"launches": got, "timings": res["timings"], "metrics": values, "root": root,
+            "ck": ck, "tmp": tmp}
 
 
 def lora_remat_phase(train_params, data_root, out_dir, wav, text, uncond, card, dev="cuda",
@@ -2183,6 +2615,22 @@ def main() -> int:
     ref6 = small_training_reference()
     log({"phase": "train_reference", **ref6, "tolerance": TRAIN_REL_TOL, "ok": True})
 
+    # -- 6a. prepare and encode on the card ------------------------------------
+    frames = (phase3_imgs + [im for imgs in gen_out["images"].values() for im in imgs])
+    prep = prepare_phase(frames[:ENCODE_FRAMES], checked, card)
+    for kind, err in prep["errs"].items():
+        errs[kind] = max(errs[kind], err)
+    torch.cuda.empty_cache()
+
+    # -- 6b. one rank over NCCL: train --coordinator, evaluate --shard ----------
+    nccl = nccl_phase(train_cfg, data_root, eval_out, card)
+    shutil.rmtree(eval_out["tmp"], ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- 6c. two data-parallel ranks on the one card over Gloo -------------------
+    gloo = gloo_phase(data_root, card)
+    shutil.rmtree(tmp, ignore_errors=True)
+
     # -- the kernels line -----------------------------------------------------
     def per_image(kind, key):
         """Sum over one image's calls (the main path's counts / requests)."""
@@ -2224,6 +2672,10 @@ def main() -> int:
             "evaluation_launches": eval_out["launches"][i],
             "lora_remat_launches_per_micro_step": lora_runs[True]["launches_per_step"][
                 "flash_attention" if kind == "flash_attention_fwd" else kind],
+            "prepare_encode_launches": prep["launches"][
+                "flash_attention" if kind == "flash_attention_fwd" else kind],
+            "process_group_launches_per_micro_step": nccl["launches_per_micro_step"][
+                "flash_attention" if kind == "flash_attention_fwd" else kind],
         })
         if kind == "group_norm_silu":
             kernels[-1].update({
@@ -2257,6 +2709,10 @@ def main() -> int:
         "library_device_ms": per_step_sum("library_device_ms"),
         "gn_backward_ms": {str(r["x"]): r["backward_ms"] for r in gn_grad_rows},
         "lora_remat_launches_per_micro_step": lora_runs[True]["launches_per_step"][
+            "flash_attention_bwd"],
+        "process_group_launches_per_micro_step": nccl["launches_per_micro_step"][
+            "flash_attention_bwd"],
+        "gloo_two_ranks_launches_per_micro_step": gloo["launches_per_micro_step"][
             "flash_attention_bwd"],
     })
     # the packed forward per image under C2D_PACKED_FLASH=1 (phase 3b), bf16
@@ -2314,4 +2770,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:  # one rank of phase 6c
+        sys.exit(gloo_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]))
     sys.exit(main())

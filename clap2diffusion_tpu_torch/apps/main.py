@@ -1,15 +1,18 @@
 """Command line (port of ``clap2diffusion_tpu/apps/main.py``): infer,
-train, evaluate, export, serve, app and ``prepare --create-sample``.
+train, evaluate, export, serve, app and prepare.
 
     python -m clap2diffusion_tpu_torch.apps.main infer --audio x.wav --text "..." \
         --output out.png [--checkpoint DIR] [--steps 50 --cfg 7.5 --seed 0 --norm 60] \
         [--best-of N]
     python -m clap2diffusion_tpu_torch.apps.main evaluate --data-root data/audiocaps \
         [--checkpoint DIR] [--stage-checkpoint DIR --ema] [--fid-variant pytorch_fid]
-    python -m clap2diffusion_tpu_torch.apps.main train --stage 2 --data-root data/audiocaps
+    python -m clap2diffusion_tpu_torch.apps.main train --stage 2 --data-root data/audiocaps \
+        [--coordinator HOST:PORT --num-processes N --process-id I]
     python -m clap2diffusion_tpu_torch.apps.main export \
         --stage-checkpoint checkpoints/stage2_final --out hierarchical.pth [--ema]
     python -m clap2diffusion_tpu_torch.apps.main serve --checkpoint DIR --port 7860
+    python -m clap2diffusion_tpu_torch.apps.main prepare --csv audiocaps.csv \
+        --audio-dir raw/ --out data/audiocaps [--encode-latents --frames-dir frames/]
     python -m clap2diffusion_tpu_torch.apps.main prepare --create-sample --out data/fixture
 
 Models run on CUDA unless ``--device cpu``; nothing falls back to the CPU
@@ -18,10 +21,17 @@ defaults (full SD v1.5 width) apply. PNG files are written without Pillow;
 another image extension, ``--init-image`` and ``--mask-image`` need it.
 ``infer --best-of N`` and ``evaluate``'s CLIPScore and Frechet metrics need
 the towers the converter's ``--clip-vision`` / ``--inception`` slots add to
-a checkpoint. Not ported yet, and exiting non-zero with the ROADMAP item
-they wait for: ``prepare`` beyond ``--create-sample`` (Queue 1, item 8),
-``train --coordinator / --num-processes / --process-id`` and ``evaluate
---shard`` (item 9).
+a checkpoint.
+
+Several cards: start one ``train`` process per card with the same
+``--coordinator`` and ``--num-processes`` and its own ``--process-id`` (or
+the ``C2D_COORDINATOR`` / ``C2D_NUM_PROCESSES`` / ``C2D_PROCESS_ID``
+variables, or ``C2D_AUTO_DIST=1`` under torchrun); ``evaluate --shard``
+reads the same variables and fans the generation out over the processes.
+``prepare --encode-latents`` encodes the frames with the VAE on the card
+(``--device cpu`` for the CPU), with random VAE weights, as the JAX CLI
+does. Not ported yet, and exiting non-zero with the ROADMAP item they wait
+for: ``C2D_INT8=1`` and ``C2D_INT8_WIRE=1`` (Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -37,11 +47,6 @@ from typing import List, Optional
 import numpy as np
 
 SAMPLERS = ["ddim", "dpmpp_2m", "dpmpp_2m_karras", "euler_a"]
-
-
-def unported(what: str, item: int) -> SystemExit:
-    return SystemExit(f"{what} is not ported to the PyTorch package yet "
-                      f"(ROADMAP Queue 1, item {item})")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -170,11 +175,12 @@ def cmd_train(args) -> int:
     from clap2diffusion_tpu_torch.diffusion.pipeline import init_params
     from clap2diffusion_tpu_torch.train.trainer import run_stage
 
-    env = [k for k in ("C2D_COORDINATOR", "C2D_NUM_PROCESSES", "C2D_PROCESS_ID",
-                       "C2D_AUTO_DIST") if os.environ.get(k)]
-    if args.coordinator or args.num_processes or args.process_id is not None or env:
-        raise unported("multi-process training (--coordinator / --num-processes / "
-                       f"--process-id{', ' + ', '.join(env) if env else ''})", 9)
+    from clap2diffusion_tpu_torch.parallel.distributed import initialize_distributed
+
+    # join the process group before anything touches the card: it picks
+    # this rank's card (a no-op without a coordinator)
+    initialize_distributed(coordinator=args.coordinator, num_processes=args.num_processes,
+                           process_id=args.process_id, device=args.device)
     cfg = _load_cfg(args)
     params = init_params(cfg, seed=cfg.train.seed, device=args.device)
     run_stage(cfg, args.stage, params, data_root=args.data_root, max_steps=args.max_steps,
@@ -187,7 +193,9 @@ def cmd_evaluate(args) -> int:
     from clap2diffusion_tpu_torch.eval.evaluate import run_evaluation
 
     if args.shard:
-        raise unported("evaluate --shard (generation fanned out over a device mesh)", 9)
+        from clap2diffusion_tpu_torch.parallel.distributed import initialize_distributed
+
+        initialize_distributed(device=args.device)
     cfg = _load_cfg(args)
     params = None
     if args.checkpoint:
@@ -202,8 +210,12 @@ def cmd_evaluate(args) -> int:
         params = _merge_stage(base, args.stage_checkpoint, args.ema, "float32")
     results = run_evaluation(cfg, data_root=args.data_root, max_samples=args.max_samples,
                              num_steps=args.steps, seed=args.seed, params=params,
-                             sampler=args.sampler, fid_variant=args.fid_variant,
-                             device=args.device)
+                             sampler=args.sampler, shard=args.shard,
+                             fid_variant=args.fid_variant, device=args.device)
+    from clap2diffusion_tpu_torch.parallel.distributed import is_coordinator
+
+    if not is_coordinator():  # every rank computes the results; one writes them
+        return 0
     out = args.output or "evaluation_results.json"
     with open(out, "w") as f:
         json.dump(results, f, indent=2)
@@ -213,14 +225,21 @@ def cmd_evaluate(args) -> int:
 
 
 def cmd_prepare(args) -> int:
-    if not args.create_sample:
-        raise unported("prepare --csv / --encode-latents (AudioCaps preparation and latent "
-                       "encoding)", 8)
-    from clap2diffusion_tpu_torch.data.fixtures import make_fixture_dataset
+    if args.create_sample:
+        from clap2diffusion_tpu_torch.data.fixtures import make_fixture_dataset
 
-    meta = make_fixture_dataset(args.out, n_train=args.n_train, n_val=args.n_val,
-                                n_test=args.n_test)
-    print(f"fixture dataset: {len(meta['samples'])} samples at {args.out}")
+        meta = make_fixture_dataset(args.out, n_train=args.n_train, n_val=args.n_val,
+                                    n_test=args.n_test)
+        print(f"fixture dataset: {len(meta['samples'])} samples at {args.out}")
+        return 0
+    from clap2diffusion_tpu_torch.data.prepare import encode_latents, prepare_audiocaps
+
+    if args.csv:
+        meta = prepare_audiocaps(args.csv, args.audio_dir, args.out)
+        print(f"prepared {len(meta['samples'])} samples")
+    if args.encode_latents:
+        n = encode_latents(args.out, frames_dir=args.frames_dir, device=args.device)
+        print(f"encoded {n} latents")
     return 0
 
 
@@ -347,11 +366,12 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--checkpoint-dir", default=None)
     pt.add_argument("--restore", default=None,
                     help="checkpoint name in checkpoint-dir to resume from")
-    pt.add_argument("--coordinator", default=None, help="not ported (ROADMAP Queue 1, item 9)")
+    pt.add_argument("--coordinator", default=None,
+                    help="several processes (one per card): the coordinator's host:port")
     pt.add_argument("--num-processes", type=int, default=None,
-                    help="not ported (ROADMAP Queue 1, item 9)")
+                    help="several processes: how many")
     pt.add_argument("--process-id", type=int, default=None,
-                    help="not ported (ROADMAP Queue 1, item 9)")
+                    help="several processes: this one's rank, 0 .. N-1")
     _add_common(pt)
     _add_device(pt)
     pt.set_defaults(fn=cmd_train)
@@ -363,7 +383,9 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--steps", type=int, default=50)
     pe.add_argument("--sampler", default=None, choices=SAMPLERS)
     pe.add_argument("--seed", type=int, default=42)
-    pe.add_argument("--shard", action="store_true", help="not ported (ROADMAP Queue 1, item 9)")
+    pe.add_argument("--shard", action="store_true",
+                    help="fan the generation out over the job's processes (C2D_COORDINATOR, "
+                         "C2D_NUM_PROCESSES, C2D_PROCESS_ID; one process is a job of one)")
     pe.add_argument("--fid-variant", default="torchvision", choices=["torchvision", "pytorch_fid"])
     pe.add_argument("--output", default=None)
     pe.add_argument("--checkpoint", default=None)
@@ -373,18 +395,24 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(pe)
     pe.set_defaults(fn=cmd_evaluate)
 
-    pp = sub.add_parser("prepare", help="fixture data (--create-sample)")
-    pp.add_argument("--csv", default=None, help="not ported (ROADMAP Queue 1, item 8)")
+    pp = sub.add_parser("prepare", help="AudioCaps CSV -> training data, frames -> latents, "
+                                        "or fixture data (--create-sample)")
+    pp.add_argument("--csv", default=None,
+                    help="AudioCaps CSV (youtube_id, caption): the sources under --audio-dir "
+                         "become 48 kHz WAVs with an 80/10/10 split")
     pp.add_argument("--audio-dir", default=None)
     pp.add_argument("--out", default="data/audiocaps")
     pp.add_argument("--frames-dir", default=None)
     pp.add_argument("--encode-latents", action="store_true",
-                    help="not ported (ROADMAP Queue 1, item 8)")
+                    help="encode the frames (--frames-dir, default <out>/frames) to "
+                         "<out>/latents/{id}.npy with the VAE encoder, on the card; the VAE "
+                         "weights are random (seed 0), as in the JAX CLI")
     pp.add_argument("--create-sample", action="store_true")
     pp.add_argument("--n-train", type=int, default=5)
     pp.add_argument("--n-val", type=int, default=2)
     pp.add_argument("--n-test", type=int, default=1)
     _add_common(pp)
+    _add_device(pp)
     pp.set_defaults(fn=cmd_prepare)
 
     ps = sub.add_parser("serve", help="the standard-library HTTP server (/generate, "

@@ -6,8 +6,9 @@
   has one;
 - samples are kept only when their latent (``.npy``, or ``.pt``) and WAV
   exist; pairing strategies matching / shifted / random;
-- unreadable audio or latents become zeros; latents are stored NCHW
-  [4, 64, 64] and returned NHWC.
+- audio decodes through the native loader (``utils/native_audio.py``),
+  as the JAX dataset's does; unreadable audio or latents become zeros;
+  latents are stored NCHW [4, 64, 64] and returned NHWC.
 
 ``PrefetchLoader`` decodes the next batches in a background thread while
 the device runs the current step. Every shard shuffles the full index list
@@ -27,7 +28,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from clap2diffusion_tpu_torch.utils.audio_io import load_audio
+from clap2diffusion_tpu_torch.utils.native_audio import load_audio
 
 
 class AudioCapsLatentDataset:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from clap2diffusion_tpu_torch.core.config import SchedulerConfig
+from clap2diffusion_tpu_torch.models.layers import DataSlice, draw as sliced_draw
 
 Draw = Callable[[int, tuple], torch.Tensor]
 Blend = Callable[[torch.Tensor, int], torch.Tensor]
@@ -242,14 +243,17 @@ def euler_ancestral_sample(eps_fn: Callable[[torch.Tensor, int], torch.Tensor],
     return latents
 
 
-def generator_draw(gen: Union[torch.Generator, Sequence[torch.Generator]]) -> Draw:
+def generator_draw(gen: Union[torch.Generator, DataSlice, Sequence[torch.Generator]]) -> Draw:
     """A draw callable over ``torch.Generator``s: one generator draws the
-    whole [B, ...] tensor each step; a sequence of B generators (per lane)
-    draws lane i's [...] from generator i, so that a lane's noise is the
-    same whatever batch it runs in. fp32, on each generator's device."""
-    if isinstance(gen, torch.Generator):
+    whole [B, ...] tensor each step (a ``DataSlice`` of one: this data
+    rank's rows of it); a sequence of B generators (per lane) draws lane
+    i's [...] from generator i, so that a lane's noise is the same whatever
+    batch it runs in. fp32, on each generator's device."""
+    if isinstance(gen, (torch.Generator, DataSlice)):
+        dev = (gen.generator if isinstance(gen, DataSlice) else gen).device
+
         def draw(i: int, shape: tuple) -> torch.Tensor:
-            return torch.randn(shape, generator=gen, device=gen.device)
+            return sliced_draw(torch.randn, shape, gen, device=dev)
         draw.lanes = None
         return draw
     gens = list(gen)

@@ -50,6 +50,10 @@ Best-of-n (``generate_best_of``): n candidates in one batched request with
 per-lane seeds, scored by CLIPScore against the prompt on the device
 (``clip_vision``, the CLIP text encoder and ``clip_text_projection``), the
 argmax selected there; only the winner and the n scores are fetched.
+
+Several processes (``generate_sharded``, ``shard_pipeline_for_serving``):
+a batch spread over a mesh's data ranks and gathered, and the wide Dense
+layers split over its model ranks (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ import math
 import os
 import time
 from collections import deque
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,10 +99,11 @@ from clap2diffusion_tpu_torch.models.condition.hierarchical import (
     ROUTING_INIT,
     HierarchicalAudioEncoder,
 )
+from clap2diffusion_tpu_torch.models.layers import DataSlice, draw
 from clap2diffusion_tpu_torch.models.unet import UNet2DCondition
 from clap2diffusion_tpu_torch.models.vae import AutoencoderKL
 from clap2diffusion_tpu_torch.ops.token_norm import rescale_to_norm
-from clap2diffusion_tpu_torch.utils.audio_io import peak_normalize, read_wav, read_wav_pcm16
+from clap2diffusion_tpu_torch.utils.audio_io import peak_normalize, read_audio, read_wav_pcm16
 from clap2diffusion_tpu_torch.utils.safetensors_io import load_safetensors, save_safetensors
 
 MODEL_TYPES = ("hierarchical", "audio_tokens", "sonic", "baseline")
@@ -336,19 +341,31 @@ class RequestDraws:
       timestep of img2img's tail (and that inpainting re-applies);
     - ``sampler()``: the stochastic sampler's draw callable ``(i, shape)``,
       per lane with ``seeds``.
+
+    ``rows=(index, count)`` makes these the rows of data rank ``index`` of
+    ``count``: each draw of [b, ...] draws the whole batch's [b * count,
+    ...] and keeps rows [index * b, (index + 1) * b)
+    (``models/layers.py::DataSlice``), so the ranks' images are those of
+    one request over the whole batch (``generate_sharded``; not with
+    ``seeds``, whose lanes draw their own noise).
     """
 
-    def __init__(self, device, seed: int, seeds: Optional[Iterable[int]] = None):
+    def __init__(self, device, seed: int, seeds: Optional[Iterable[int]] = None,
+                 rows: Optional[Tuple[int, int]] = None):
+        if rows is not None and seeds is not None:
+            raise ValueError("rows slices the batch's draws; per-lane seeds draw their own")
         self.device = torch.device(device)
         self.seed = int(seed)
         self.seeds = None if seeds is None else [int(s) for s in seeds]
+        self.rows = rows
 
-    def _gen(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def _gen(self, seed: int):
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return gen if self.rows is None else DataSlice(gen, *self.rows)
 
     def _randn(self, shape, seed: int) -> torch.Tensor:
-        return torch.randn(shape, generator=self._gen(seed), device=self.device,
-                           dtype=torch.float32)
+        return draw(torch.randn, shape, self._gen(seed), device=self.device,
+                    dtype=torch.float32)
 
     def latents(self, shape) -> torch.Tensor:
         if self.seeds is None:
@@ -474,23 +491,19 @@ class AudioToImagePipeline:
     # -- host-side frontends --------------------------------------------------
 
     def load_audio(self, path: str) -> np.ndarray:
-        """A WAV file -> the waveform ``generate`` takes. A mono PCM16 WAV at
-        the CLAP rate stays int16 (dequantised on the device), when cropping
-        keeps its peak; anything else is peak-normalised as a whole, then
-        mixed to mono, resampled and fitted to length. Other containers
-        (FLAC, mp3, ...) are not ported."""
+        """An audio file -> the waveform ``generate`` takes. A mono PCM16 WAV
+        at the CLAP rate stays int16 (dequantised on the device), when
+        cropping keeps its peak; anything else (any WAV, FLAC and mp3
+        through the native loader, other containers through ffmpeg:
+        ``utils/audio_io.py::read_audio``) is peak-normalised as a whole,
+        then mixed to mono, resampled and fitted to length."""
         fe = self.cfg.clap.frontend
         pcm = read_wav_pcm16(path)
         if pcm is not None and pcm[1] == fe.sample_rate:
             x, n = pcm[0], fe.num_samples
             if len(x) <= n or np.abs(x[:n]).max() == np.abs(x).max():
                 return fit_to_length(x, n)
-        with open(path, "rb") as f:
-            if f.read(4) != b"RIFF":
-                raise NotImplementedError(
-                    f"{path}: only WAV is read by the port; FLAC, mp3 and other containers "
-                    "wait for the native loader (ROADMAP Queue 1, item 8)")
-        wav, sr = read_wav(path)
+        wav, sr = read_audio(path)
         return prepare_waveform(peak_normalize(wav), sr, fe)
 
     def load_init_image(self, source, mask: bool = False) -> np.ndarray:
@@ -561,10 +574,10 @@ class AudioToImagePipeline:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def draws(self, seed: int, seeds=None) -> RequestDraws:
+    def draws(self, seed: int, seeds=None, rows=None) -> RequestDraws:
         """The request's random draws (see ``RequestDraws``); the one place
         a caller or a test replaces them."""
-        return RequestDraws(self.device, seed, seeds)
+        return RequestDraws(self.device, seed, seeds, rows)
 
     # -- generation -----------------------------------------------------------
 
@@ -665,6 +678,7 @@ class AudioToImagePipeline:
         mask_image: Optional[np.ndarray] = None,
         seeds: Optional[np.ndarray] = None,
         guidance_rescale: float = 0.0,
+        draws: Optional[RequestDraws] = None,
     ):
         """Check and prepare the arguments, then enqueue the request;
         returns, without synchronising, the handle whose ``numpy()`` gives
@@ -678,7 +692,9 @@ class AudioToImagePipeline:
         timesteps; ``mask_image`` (uint8 [H, W], nonzero = regenerate)
         makes it inpainting (``strength=1.0`` for pure inpainting);
         ``waveform2`` with ``audio_mix`` blends two sources' CLAP
-        embeddings (``audio_mix`` is the first one's weight)."""
+        embeddings (``audio_mix`` is the first one's weight). ``draws``
+        replaces ``self.draws(seed, seeds)`` for this request
+        (``generate_sharded`` passes a data rank's rows of them)."""
         sch = self.cfg.diffusion.scheduler
         sampler = sampler or sch.sampler
         if sampler not in SAMPLERS:
@@ -736,7 +752,7 @@ class AudioToImagePipeline:
                 mask = _latent_mask(mask_image, size)
 
         img = self._generate(
-            self.draws(seed, seeds), wav, wav2, np.asarray(text_ids, np.int32),
+            draws or self.draws(seed, seeds), wav, wav2, np.asarray(text_ids, np.int32),
             np.asarray(uncond_ids, np.int32), num_steps=num_steps,
             guidance_scale=float(guidance_scale), model_type=model_type, batch=batch,
             norm_target=float(norm_target), temperature=float(temperature), sampler=sampler,
@@ -861,3 +877,73 @@ class AudioToImagePipeline:
         ``--clip-vision``)."""
         best, scores = self._dispatch_best_of(n, **kw)
         return best.numpy(), scores.numpy()
+
+
+def shard_pipeline_for_serving(pipe: AudioToImagePipeline, mesh) -> AudioToImagePipeline:
+    """Latency-mode tensor parallelism (port of the JAX function): every
+    tower's wide Dense layers (``parallel/sharding.py::param_spec``: the
+    UNet's GEGLU projections, CLIP text's and HTSAT's wide MLPs, the
+    adapter's 256 -> 24,576 KV head) become column-parallel over the mesh's
+    model axis, each rank holding its rows of their weights; the ranks of a
+    model group then serve the same request in lockstep, gathering each
+    sharded layer's output. ``pipe.params`` gives the shards afterwards. A
+    mesh without a model axis is a no-op."""
+    from clap2diffusion_tpu_torch.parallel.sharding import shard_params
+
+    if mesh.size("model") == 1:
+        return pipe
+    for name in CORE_TOWERS:
+        module = getattr(pipe, name)
+        if module is not None:
+            local = shard_params(module, module.state_dict(), mesh)
+            module.load_state_dict(local, strict=True)
+    pipe._scorer = None
+    return pipe
+
+
+def generate_sharded(pipe: AudioToImagePipeline, mesh, waveforms: np.ndarray,
+                     text_ids: np.ndarray, uncond_ids: Optional[np.ndarray] = None,
+                     num_steps: int = 50, guidance_scale: float = 7.5,
+                     norm_target: float = 60.0, model_type: str = "hierarchical",
+                     seed: int = 0, sampler: str = "ddim",
+                     seeds: Optional[np.ndarray] = None) -> np.ndarray:
+    """Serve a batch of requests over the mesh's data axis (port of the JAX
+    function): each data rank runs its slice of the batch (which the data
+    axis must divide) through the normal ``generate``, and the ranks gather
+    the uint8 images, so every rank returns all [B, H, W, 3]. ``seeds``
+    (int [B]) gives each lane its own noise, so a lane's image does not
+    depend on the rank it lands on; without it each rank draws its rows of
+    the batch's draws, as one ``generate(batch=B, seed=seed)`` draws them.
+    A single-rank mesh is ``generate`` itself."""
+    import torch.distributed as dist
+
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}; available: {sorted(SAMPLERS)}")
+    b = text_ids.shape[0]
+    if uncond_ids is None:
+        uncond_ids = np.zeros_like(text_ids)
+    if seeds is not None:
+        seeds = np.asarray(seeds, np.int32).reshape(-1)
+        if seeds.shape[0] != b:
+            raise ValueError(f"seeds has {seeds.shape[0]} entries for batch {b}")
+    count, index = mesh.size("data"), mesh.coord("data")
+    if b % count:
+        raise ValueError(f"batch {b} is not divisible by the data axis {count}")
+    rows = slice(index * (b // count), (index + 1) * (b // count))
+    kw = dict(num_steps=num_steps, guidance_scale=guidance_scale, norm_target=norm_target,
+              temperature=0.5, model_type=model_type, seed=seed, batch=b // count,
+              sampler=sampler, seeds=None if seeds is None else seeds[rows])
+    if count == 1:
+        return pipe.generate(waveforms, text_ids.astype(np.int32),
+                             uncond_ids.astype(np.int32), **kw)
+    if seeds is None:
+        kw["draws"] = pipe.draws(seed, rows=(index, count))
+    imgs = pipe.generate(np.asarray(waveforms)[rows], text_ids[rows].astype(np.int32),
+                         uncond_ids[rows].astype(np.int32), **kw)
+    group = mesh.group("data")
+    local = torch.from_numpy(np.ascontiguousarray(imgs))
+    if dist.get_backend(group) != "gloo":
+        local = local.to(pipe.device)
+    parts = [torch.empty_like(local) for _ in range(count)]
+    dist.all_gather(parts, local, group=group)
+    return torch.cat(parts).cpu().numpy()

@@ -25,8 +25,16 @@ another size (resized to the image size, as JAX does), needs Pillow. The
 metric towers run on the pipeline's device: CLIP vision and Inception in
 fp32 (the JAX towers promote their weights against fp32 pixels), the CLAP
 text tower in its weights' type; Inception always with its running
-statistics (``BatchNorm``), built in eval mode. ``shard=True`` (the JAX
-package's multi-chip evaluation) is not ported (ROADMAP Queue 1, item 9).
+statistics (``BatchNorm``), built in eval mode.
+
+``shard=True`` fans the generation out over the job's processes
+(``diffusion/pipeline.py::generate_sharded`` on a 1-D data mesh of every
+rank; one process per card, joined by ``initialize_distributed`` from the
+``C2D_*`` variables, and a single process is a mesh of one): groups of as
+many samples as ranks, the tail group padded with its last sample, every
+lane seeded with the evaluation seed, so that each image is
+``generate(seeds=[seed])`` of its sample wherever it runs. A sample's
+service time is its group's wall time. Every rank computes the metrics.
 """
 
 from __future__ import annotations
@@ -46,25 +54,9 @@ def load_reference_frame(path: str, size) -> np.ndarray:
     """A reference frame as uint8 RGB [H, W, 3] at ``size`` (h, w): a PNG of
     that size through ``utils/png.py``; anything else through Pillow
     (``convert("RGB").resize``, as the JAX evaluator reads it)."""
-    if path.lower().endswith(".png"):
-        from clap2diffusion_tpu_torch.utils.png import decode_png
+    from clap2diffusion_tpu_torch.utils.png import read_rgb
 
-        with open(path, "rb") as f:
-            data = f.read()
-        try:
-            img = decode_png(data)
-        except ValueError:  # a PNG form the decoder does not read: Pillow's
-            img = None
-        if img is not None and img.shape[:2] == tuple(size):
-            if img.ndim == 2:
-                return np.repeat(img[..., None], 3, axis=-1)
-            return np.ascontiguousarray(img[..., :3])
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(f"reading the reference frame {path} needs Pillow (PIL): a JPEG, or "
-                          f"a frame other than a {size[0]}x{size[1]} PNG") from e
-    return np.asarray(Image.open(path).convert("RGB").resize((size[1], size[0])))
+    return read_rgb(path, size)
 
 
 def run_evaluation(
@@ -87,9 +79,9 @@ def run_evaluation(
     ``clip_text_projection``, ``clap_text``, ``inception_v3``); None draws
     the pipeline from ``seed``. Runs on CUDA unless ``device="cpu"``."""
     if shard:
-        raise NotImplementedError(
-            "run_evaluation(shard=True) (generation fanned out over a device mesh) is not "
-            "ported to the PyTorch package yet (ROADMAP Queue 1, item 9)")
+        from clap2diffusion_tpu_torch.parallel.distributed import initialize_distributed
+
+        initialize_distributed(device=device)
     from clap2diffusion_tpu_torch.data.latent_dataset import AudioCapsLatentDataset
     from clap2diffusion_tpu_torch.diffusion.pipeline import (
         AudioToImagePipeline,
@@ -163,13 +155,40 @@ def run_evaluation(
     images: list = []
     service_times: list = []
     wall_start = time.perf_counter()
-    # two requests in flight: one image's host transfers overlap its
-    # neighbour's compute; service_s is each request's dispatch -> fetch
-    reqs = [{"waveform": item["audio"], "text_ids": tok(item["caption"])} for item in items]
-    for img, dt in pipe.generate_stream_timed(iter(reqs), depth=2, uncond_ids=tok(""),
-                                              num_steps=num_steps, seed=seed, sampler=sampler):
-        images.append(img[0])
-        service_times.append(dt)
+    if shard and n:
+        from clap2diffusion_tpu_torch.core.mesh import make_mesh
+        from clap2diffusion_tpu_torch.diffusion.pipeline import generate_sharded
+
+        mesh = make_mesh({"data": -1})
+        d = mesh.size("data")
+        uncond = tok("")
+        for i in range(0, n, d):
+            chunk = items[i:i + d]
+            k = len(chunk)
+            # the tail group padded with its last sample: every group the same size
+            wavs = np.stack([c["audio"] for c in chunk] + [chunk[-1]["audio"]] * (d - k))
+            ids = np.concatenate([tok(c["caption"]) for c in chunk]
+                                 + [tok(chunk[-1]["caption"])] * (d - k))
+            t0 = time.perf_counter()
+            imgs = generate_sharded(
+                pipe, mesh, wavs, ids, uncond_ids=np.repeat(uncond, d, axis=0),
+                num_steps=num_steps, guidance_scale=cfg.diffusion.scheduler.guidance_scale,
+                norm_target=cfg.condition.audio_norm_target, seed=seed,
+                sampler=sampler or cfg.diffusion.scheduler.sampler,
+                seeds=np.full(d, seed, np.int32))
+            dt = time.perf_counter() - t0
+            images.extend(imgs[:k])
+            service_times.extend([dt] * k)  # a sample completes with its group
+    else:
+        # two requests in flight: one image's host transfers overlap its
+        # neighbour's compute; service_s is each request's dispatch -> fetch
+        reqs = [{"waveform": item["audio"], "text_ids": tok(item["caption"])}
+                for item in items]
+        for img, dt in pipe.generate_stream_timed(iter(reqs), depth=2, uncond_ids=tok(""),
+                                                  num_steps=num_steps, seed=seed,
+                                                  sampler=sampler):
+            images.append(img[0])
+            service_times.append(dt)
     generation_wall_s = time.perf_counter() - wall_start
     timings: Dict[str, float] = {"generation_s": round(generation_wall_s, 2)}
 

@@ -10,13 +10,34 @@ Parameter names and shapes are PyTorch's own (``weight`` [O, I, kh, kw],
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from clap2diffusion_tpu_torch.ops.groupnorm import group_norm, group_norm_silu
+
+
+class DataSlice:
+    """One data-parallel rank's view of a ``torch.Generator``: a draw of
+    shape (b, ...) draws the global batch's (b * count, ...) and keeps this
+    rank's rows [index * b, (index + 1) * b), so that ``count`` ranks draw
+    what one process draws for the whole batch (``parallel/sharding.py``)."""
+
+    def __init__(self, generator: torch.Generator, index: int, count: int):
+        self.generator, self.index, self.count = generator, index, count
+
+
+def draw(fn: Callable, shape, generator, **kw) -> torch.Tensor:
+    """``fn(shape, generator=..., **kw)`` (``torch.rand``, ``torch.randn``
+    or the like), or this rank's rows of the global draw when ``generator``
+    is a ``DataSlice``."""
+    if not isinstance(generator, DataSlice):
+        return fn(tuple(shape), generator=generator, **kw)
+    b = shape[0]
+    full = fn((b * generator.count, *shape[1:]), generator=generator.generator, **kw)
+    return full[generator.index * b:(generator.index + 1) * b]
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
@@ -30,7 +51,7 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     if generator is None:
         raise ValueError("dropout with deterministic=False needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw(torch.rand, x.shape, generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

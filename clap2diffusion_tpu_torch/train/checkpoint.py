@@ -82,19 +82,26 @@ def load_payload(ckpt_dir: str, name: str = "state") -> Dict[str, Any]:
 
 @torch.no_grad()
 def restore_checkpoint(ckpt_dir: str, state, name: str = "state",
-                       trainable: Optional[Callable[[str], bool]] = None):
+                       trainable: Optional[Callable[[str], bool]] = None,
+                       local: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None):
     """Load a checkpoint into ``state`` in place (its tensors keep their
     device and type) and return it. The saved params overlay the state's:
-    leaves a pruned checkpoint left out keep the state's values."""
+    leaves a pruned checkpoint left out keep the state's values.
+    ``local("tower.name", t)`` gives this rank's part of a saved leaf (a
+    model-parallel run's shard: ``train/trainer.py``)."""
     payload = load_payload(ckpt_dir, name)
+    local = local or (lambda k, t: t)
     for tower, sd in payload["params"].items():
         for n, t in sd.items():
-            state.params[tower][n].copy_(t)
-    state.opt.load_state_dict(payload["opt_state"])
+            state.params[tower][n].copy_(local(f"{tower}.{n}", t))
+    opt = payload["opt_state"]
+    state.opt.load_state_dict({**opt, **{
+        part: None if opt[part] is None else {k: local(k, t) for k, t in opt[part].items()}
+        for part in ("acc", "mu", "nu")}})
     state.step = int(payload["step"])
     if state.ema is not None and payload.get("ema_params") is not None:
         for k, t in payload["ema_params"].items():
-            state.ema[k].copy_(t)
+            state.ema[k].copy_(local(k, t))
     return state
 
 

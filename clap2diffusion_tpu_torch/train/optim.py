@@ -12,7 +12,8 @@ optax's own formulas and order of operations:
   ``acc += (g - acc) / (mini_step + 1)`` over ``grad_accum`` micro-steps,
   then one clip + AdamW update; the learning-rate schedule and Adam's bias
   correction count updates, not micro-steps;
-- ``optax.clip_by_global_norm``: the norm over all trainable leaves, and
+- ``optax.clip_by_global_norm``: the norm over all trainable leaves (a
+  model-parallel leaf's squares summed over its group: ``sharded``), and
   ``g / norm * max_norm`` only when the norm is not below ``max_norm``;
 - ``optax.adamw``: eps added after the square root, decay ``wd * p`` added
   to the Adam direction, the sum scaled by ``-lr(count)`` with the count of
@@ -27,6 +28,7 @@ import math
 from typing import Callable, Dict, Iterable
 
 import torch
+import torch.distributed
 
 from clap2diffusion_tpu_torch.core.config import StageConfig
 
@@ -80,6 +82,10 @@ class Optimizer:
                          for n, p in params.items()}
         self.acc = zeros() if cfg.grad_accum > 1 else None
         self.mu, self.nu = zeros(), zeros()
+        # model-parallel leaves (names) and their group: the clip's norm sums
+        # their squares over it (parallel/sharding.py)
+        self.sharded: frozenset = frozenset()
+        self.shard_group = None
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> bool:
@@ -100,7 +106,13 @@ class Optimizer:
 
     def _update(self, grads: Dict[str, torch.Tensor]) -> None:
         c = self.cfg
-        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        if self.sharded:
+            part = sum((grads[n] * grads[n]).sum() for n in self.sharded)
+            torch.distributed.all_reduce(part, group=self.shard_group)
+            norm = torch.sqrt(sum((g * g).sum() for n, g in grads.items()
+                                  if n not in self.sharded) + part)
+        else:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
         clip = norm >= c.grad_clip
         lr = self.schedule(self.count)
         self.count += 1

@@ -51,8 +51,10 @@ from clap2diffusion_tpu_torch.diffusion.ddim import NoiseSchedule
 from clap2diffusion_tpu_torch.models.condition.adapter import AudioAdapter
 from clap2diffusion_tpu_torch.models.condition.hierarchical import HierarchicalAudioEncoder
 from clap2diffusion_tpu_torch.models.condition.temperature import temperature_from_config
+from clap2diffusion_tpu_torch.models.layers import draw
 from clap2diffusion_tpu_torch.models.unet import UNet2DCondition
 from clap2diffusion_tpu_torch.ops.token_norm import rescale_to_norm
+from clap2diffusion_tpu_torch.parallel.sharding import all_mean
 from clap2diffusion_tpu_torch.train import losses as L
 from clap2diffusion_tpu_torch.train.lora import lora_trainable, merge_lora
 from clap2diffusion_tpu_torch.train.optim import Optimizer, ema_update
@@ -97,11 +99,12 @@ def _cast_to(x, dtype: torch.dtype):
 def sample_noising(schedule: NoiseSchedule, latents: torch.Tensor,
                    generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
     """(noise, t): standard normal noise like the latents and integer
-    timesteps in [0, T), both from ``generator``."""
-    t = torch.randint(0, schedule.num_train_timesteps, (latents.shape[0],),
-                      generator=generator, device=latents.device)
-    noise = torch.randn(latents.shape, generator=generator, device=latents.device,
-                        dtype=latents.dtype)
+    timesteps in [0, T), both from ``generator`` (a ``DataSlice`` of one
+    under data parallelism)."""
+    t = draw(lambda shape, **kw: torch.randint(0, schedule.num_train_timesteps, shape, **kw),
+             (latents.shape[0],), generator, device=latents.device)
+    noise = draw(torch.randn, latents.shape, generator, device=latents.device,
+                 dtype=latents.dtype)
     return noise, t
 
 
@@ -280,14 +283,23 @@ def grads_of(total: torch.Tensor, leaves: Dict[str, torch.Tensor]) -> Dict[str, 
 
 
 def train_step(stage: Stage, state: TrainState, batch: Dict[str, torch.Tensor],
-               generator: torch.Generator) -> Dict[str, torch.Tensor]:
+               generator: torch.Generator, mesh=None) -> Dict[str, torch.Tensor]:
     """One micro-step: loss, gradients, optimizer (an update every
     ``grad_accum`` micro-steps), EMA, step + 1. Returns the step's scalar
-    metrics as device tensors (no host sync)."""
+    metrics as device tensors (no host sync). On a ``mesh`` with a data
+    axis the gradients and the metrics are averaged over it
+    (``parallel/sharding.py``): the mean over the global batch."""
     total, losses = stage.loss(state, batch, generator)
     leaves = state.trainable_leaves()
-    state.opt.step(grads_of(total, leaves))
+    grads = grads_of(total, leaves)
+    group = None if mesh is None else mesh.group("data")
+    all_mean(grads.values(), group)
+    state.opt.step(grads)
     if state.ema is not None:
         ema_update(state.ema, leaves, stage.scfg.ema_decay)
     state.step += 1
-    return {k: v.detach() for k, v in losses.items() if torch.is_tensor(v) and v.dim() == 0}
+    metrics = {k: v.detach() for k, v in losses.items() if torch.is_tensor(v) and v.dim() == 0}
+    if group is not None:
+        metrics = {k: v.float().clone() for k, v in metrics.items()}
+        all_mean(metrics.values(), group)
+    return metrics

@@ -16,11 +16,26 @@ saves only at the end of such a call. The port steps one batch at a time
 and takes those decisions at the same micro-steps (every
 ``steps_per_call`` from the start, and at the last step); it reads the
 field nowhere else. A SIGTERM or SIGINT saves ``stage{N}_preempt`` after
-the current micro-step and re-raises the signal. Stage 2 with
+the current micro-step and re-raises the signal; under a process group a
+signal to any rank does so on every rank, at the same micro-step. Stage 2 with
 ``lora_rank > 0`` adds the LoRA adapter tower (``train/lora.py``); stages 1
 and 3 ignore the field, as the JAX trainer does. ``diffusion.unet.remat``
 recomputes the UNet's blocks in the backward (``models/unet.py``).
-Multi-device training is not ported.
+
+Several processes (one per card): ``run_stage`` joins the job's process
+group first (``parallel/distributed.py::initialize_distributed``, a no-op
+in one process) and trains on a ``(data, model)`` mesh of its ranks
+(``choose_mesh_axes``, ``cfg.train.model_parallel``). Each data rank reads
+its shard of the training set (``PrefetchLoader(shard_index=,
+num_shards=)``) and its gradients and metrics are averaged over the data
+axis; the model ranks of one data index read the same samples, and the
+wide Dense layers are column-parallel over them (``parallel/sharding.py``).
+A rank is one card, so the port's global batch is ``batch_size`` times the
+number of data ranks, where the JAX package's is ``batch_size`` times its
+processes, each a host of several chips (ROADMAP known delta 20). Logging,
+metrics and checkpoint files are the coordinator's; a checkpoint gathers
+the sharded leaves first, and the other ranks wait at a barrier. The
+validation batch count is the minimum over the ranks.
 """
 
 from __future__ import annotations
@@ -42,7 +57,22 @@ from clap2diffusion_tpu_torch.data.latent_dataset import AudioCapsLatentDataset,
 from clap2diffusion_tpu_torch.models.clap.frontend import log_mel_spectrogram
 from clap2diffusion_tpu_torch.models.clap.htsat import ClapAudioTower
 from clap2diffusion_tpu_torch.models.clip_text import CLIPTextEncoder
+from clap2diffusion_tpu_torch.models.layers import DataSlice
 from clap2diffusion_tpu_torch.models.tokenizer import CLIPTokenizer
+from clap2diffusion_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    is_coordinator,
+    process_count,
+)
+from clap2diffusion_tpu_torch.parallel.sharding import (
+    all_mean,
+    gather_rows,
+    local_rows,
+    make_sharded_step,
+    make_train_mesh,
+    replicate,
+    shard_params,
+)
 from clap2diffusion_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from clap2diffusion_tpu_torch.train.lora import init_lora
 from clap2diffusion_tpu_torch.train.stages import (
@@ -111,6 +141,103 @@ def _dataset(cfg: Config, data_root: str, split: str, pairing: str) -> AudioCaps
         latent_hw=cfg.data.latent_shape[1])
 
 
+def choose_mesh_axes(n_dev: int, model_parallel: int, batch_size: int,
+                     nproc: int) -> tuple:
+    """The (data, model) mesh axis sizes for a training run (a copy of the
+    JAX function, with its checks). One process: the data axis is the
+    largest device count dividing the global batch. Several: the mesh must
+    cover every process's devices, so all are used and the divisibility is
+    checked. The port has one device per process (``n_dev == nproc``)."""
+    mp = max(1, model_parallel)
+    if n_dev % mp != 0:
+        raise ValueError(f"model_parallel={mp} does not divide {n_dev} devices")
+    global_batch = batch_size * nproc
+    avail_dp = n_dev // mp
+    if nproc > 1:
+        dp = avail_dp
+        if global_batch % dp != 0:
+            raise ValueError(
+                f"multi-host run: global batch {global_batch} "
+                f"(batch_size {batch_size} x {nproc} processes) must be "
+                f"divisible by the data axis {dp} "
+                f"(= {n_dev} devices / model_parallel {mp})")
+    else:
+        dp = max(d for d in range(1, avail_dp + 1) if global_batch % d == 0)
+    return dp, mp
+
+
+class _NullLogger:
+    """What a rank other than the coordinator logs to."""
+
+    def log(self, step, metrics) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _barrier() -> None:
+    if process_count() > 1:
+        torch.distributed.barrier()
+
+
+def _sharded_keys(st, params, mesh) -> set:
+    """Shard each tower of the stage over the mesh's model axis (its
+    module's wide Dense layers and ``params``' tensors of them, in place);
+    the "tower.name" keys that were sharded."""
+    keys = set()
+    for tw, module in st.modules.items():
+        local = shard_params(module, params[tw], mesh)
+        keys |= {f"{tw}.{n}" for n, t in local.items() if t is not params[tw][n]}
+        params[tw] = local
+    return keys
+
+
+def _full_state(state: TrainState, keys: set, mesh):
+    """The state with every model-sharded leaf gathered whole (a collective:
+    every rank calls it), for a checkpoint."""
+    from types import SimpleNamespace
+
+    def full(k, t):
+        return gather_rows(t, mesh) if k in keys else t
+
+    sd = state.opt.state_dict()
+    opt = {**sd, **{part: None if sd[part] is None else
+                    {k: full(k, t) for k, t in sd[part].items()}
+                    for part in ("acc", "mu", "nu")}}
+    return SimpleNamespace(
+        params={tw: {n: full(f"{tw}.{n}", t) for n, t in p.items()}
+                for tw, p in state.params.items()},
+        opt=SimpleNamespace(state_dict=lambda: opt), step=state.step,
+        ema=None if state.ema is None else {k: full(k, t) for k, t in state.ema.items()})
+
+
+def stage_state(cfg: Config, stage: int, params: Dict, mesh, device, seed: int):
+    """(stage, state, sharded keys): the stage's towers copied from
+    ``params`` to ``device`` as fp32 masters (the trainable ones made equal
+    to rank 0's, the LoRA tower drawn for stage 2 with ``lora_rank > 0``),
+    sharded over ``mesh``'s model axis, and the state built on them."""
+    st = MAKE_STAGE[stage](cfg)
+    scfg = st.scfg
+    masters = {tw: {n: t.detach().to(device, torch.float32, copy=True)
+                    for n, t in params[tw].items()} for tw in st.towers if tw != "lora"}
+    if "lora" in st.towers:
+        # stage 2 only, as in JAX; A is drawn from the seed of the JAX key
+        # (seed + 0x10A5), by a torch.Generator (ROADMAP known delta 16)
+        masters["lora"] = init_lora(
+            masters["unet"], scfg.lora_rank,
+            torch.Generator(device=device).manual_seed(seed + 0x10A5), alpha=scfg.lora_alpha)
+    # the trainable leaves start from rank 0's values; the frozen ones are
+    # what every rank's caller drew or loaded alike
+    replicate({tw: {n: t for n, t in sd.items() if st.trainable(f"{tw}.{n}")}
+               for tw, sd in masters.items()}, mesh)
+    sharded = _sharded_keys(st, masters, mesh)
+    state = st.create_state(masters)
+    state.opt.sharded = frozenset(k for k in sharded if k in state.opt.params)
+    state.opt.shard_group = mesh.group("model")
+    return st, state, sharded
+
+
 def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = None,
               max_steps: Optional[int] = None, checkpoint_dir: Optional[str] = None,
               log_dir: Optional[str] = None, seed: Optional[int] = None,
@@ -121,12 +248,14 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
     its towers to ``device`` as fp32 masters, so the caller's tensors are
     never modified). ``max_steps`` counts micro-steps. ``resume_from``
     names a checkpoint in ``checkpoint_dir`` whose params, optimizer state
-    and step are restored before continuing. ``device=None`` means CUDA."""
+    and step are restored before continuing. ``device=None`` means CUDA
+    (this rank's card in a job of several processes)."""
     if os.environ.get("C2D_INT8") == "1":
         # as the JAX run_stage: the quantisation's round() has zero gradient
         raise RuntimeError(
             "C2D_INT8=1 is a serve-only mode (clap2diffusion_tpu/ops/quant.py); unset it for "
             "training — the quantization round() has zero gradient.")
+    initialize_distributed(device=device)
     dev = resolve_device(device)
     if stage not in MAKE_STAGE:
         raise ValueError(f"unknown stage {stage}")
@@ -135,26 +264,34 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
     data_root = data_root or cfg.data.data_root
     steps = max_steps if max_steps is not None else scfg.steps
 
-    st = MAKE_STAGE[stage](cfg)
-    masters = {tw: {n: t.detach().to(dev, torch.float32, copy=True)
-                    for n, t in params[tw].items()} for tw in st.towers if tw != "lora"}
-    if "lora" in st.towers:
-        # stage 2 only, as in JAX; A is drawn from the seed of the JAX key
-        # (seed + 0x10A5), by a torch.Generator (ROADMAP known delta 16)
-        masters["lora"] = init_lora(
-            masters["unet"], scfg.lora_rank,
-            torch.Generator(device=dev).manual_seed(seed + 0x10A5), alpha=scfg.lora_alpha)
-    state = st.create_state(masters)
+    nproc = process_count()
+    dp, mp = choose_mesh_axes(nproc, cfg.train.model_parallel, scfg.batch_size, nproc)
+    mesh = make_train_mesh(dp * mp, model_parallel=mp)
+    st, state, sharded = stage_state(cfg, stage, params, mesh, dev, seed)
     if resume_from and checkpoint_dir:
-        restore_checkpoint(checkpoint_dir, state, name=resume_from, trainable=st.trainable)
+        restore_checkpoint(checkpoint_dir, state, name=resume_from, trainable=st.trainable,
+                           local=lambda k, t: local_rows(t, mesh) if k in sharded else t)
     frontend = EmbeddingFrontend(cfg, params, data_root=data_root, device=dev)
     loader = PrefetchLoader(_dataset(cfg, data_root, "train", cfg.data.pairing),
-                            batch_size=scfg.batch_size, seed=seed, prefetch=cfg.data.prefetch)
-    logger = MetricLogger(log_dir or cfg.train.log_dir, run_name=f"stage{stage}")
+                            batch_size=scfg.batch_size, seed=seed, prefetch=cfg.data.prefetch,
+                            shard_index=mesh.coord("data"), num_shards=dp)
+    coordinator = is_coordinator()
+    logger = (MetricLogger(log_dir or cfg.train.log_dir, run_name=f"stage{stage}")
+              if coordinator else _NullLogger())
     keys = BATCH_KEYS[stage]
     spc = max(1, scfg.steps_per_call)
     generator = torch.Generator(device=dev).manual_seed(seed)
+    if dp > 1:  # this rank's rows of the draws for the global batch
+        generator = DataSlice(generator, mesh.coord("data"), dp)
+    step_fn = train_step if mesh.devices == 1 else make_sharded_step(train_step, mesh)
     val = {"batches": None}
+
+    def save(name: str) -> None:
+        """Every rank gathers; the coordinator writes; the others wait."""
+        full = _full_state(state, sharded, mesh) if sharded else state
+        if coordinator:
+            save_checkpoint(checkpoint_dir, full, name=name, trainable=st.trainable)
+        _barrier()
 
     def with_ema(s: TrainState) -> TrainState:
         """The weights serving would use: the EMA shadow over the trainable
@@ -175,26 +312,42 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
             except (OSError, ValueError, KeyError) as e:
                 print(f"[run_stage] eval_every disabled: {e}")
                 ds = None
+            # the same shuffle on every rank, then each data rank's strided
+            # share; the count agreed as the minimum over the ranks, since
+            # the evaluation's collectives must pair up
             order = np.arange(len(ds) if ds else 0)
             np.random.RandomState(cfg.data.seed).shuffle(order)
             bs = scfg.batch_size
+            nb = min(scfg.eval_batches, len(order) // (bs * dp))
+            order = order[mesh.coord("data")::dp]
+            if nproc > 1:
+                nb_t = torch.tensor([nb], device="cpu" if torch.distributed.get_backend()
+                                    == "gloo" else dev)
+                torch.distributed.all_reduce(nb_t, op=torch.distributed.ReduceOp.MIN)
+                nb = int(nb_t.item())
             val["batches"] = [
                 {k: v for k, v in frontend.embed_batch(PrefetchLoader._collate(
                     [ds[int(i)] for i in order[b * bs:(b + 1) * bs]])).items() if k in keys}
-                for b in range(min(scfg.eval_batches, len(order) // bs))]
+                for b in range(nb)]
             if ds is not None and not val["batches"]:
-                print(f"[run_stage] eval_every disabled: val split smaller than batch {bs}")
+                print(f"[run_stage] eval_every disabled: val split smaller than batch {bs} "
+                      f"x {dp} data ranks")
         if not val["batches"]:
             return None
         es = with_ema(s)
         gen = torch.Generator(device=dev).manual_seed(seed ^ 0xE7A1)
+        if dp > 1:
+            gen = DataSlice(gen, mesh.coord("data"), dp)
         totals: Dict[str, list] = {}
         with torch.no_grad():
             for b in val["batches"]:
                 for k, v in st.loss(es, b, gen)[1].items():
                     if torch.is_tensor(v) and v.dim() == 0:
                         totals.setdefault(k, []).append(float(v))
-        return {"val_" + k: float(np.mean(v)) for k, v in totals.items()}
+        means = {k: torch.tensor(float(np.mean(v)), dtype=torch.float64, device=dev)
+                 for k, v in totals.items()}
+        all_mean(means.values(), mesh.group("data"))
+        return {"val_" + k: float(v) for k, v in means.items()}
 
     caught = {"sig": None}
     restore_sigs = []
@@ -210,6 +363,21 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
         for sig, prev in restore_sigs:
             signal.signal(sig, prev)
 
+    # the preemption save is collective, so the ranks agree on the signal
+    # after every micro-step: one rank's signal stops them all at the same
+    # micro-step. The flag goes over Gloo on the host, never syncing a card.
+    flag_group = None
+    if restore_sigs and nproc > 1 and torch.distributed.get_backend() != "gloo":
+        flag_group = torch.distributed.new_group(backend="gloo")
+
+    def preempting() -> Optional[int]:
+        sig = caught["sig"]
+        if restore_sigs and nproc > 1:
+            t = torch.tensor([sig or 0], dtype=torch.int64)
+            torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=flag_group)
+            sig = int(t.item()) or None
+        return sig
+
     best_sidecar = (os.path.join(checkpoint_dir, f"stage{stage}_best_val.json")
                     if checkpoint_dir else None)
     best_val = math.inf
@@ -224,7 +392,7 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
         while done < steps:
             for batch in loader.epoch(epoch):
                 emb = frontend.embed_batch(batch)
-                metrics = train_step(st, state, {k: emb[k] for k in keys}, generator)
+                metrics = step_fn(st, state, {k: emb[k] for k in keys}, generator)
                 done += 1
                 if (done - start) % spc == 0 or done >= steps:  # a JAX call boundary
                     if done % scfg.log_every < spc or done <= spc:
@@ -238,18 +406,17 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
                             logger.log(done, vm)
                         if vm and checkpoint_dir and vm.get("val_total", math.inf) < best_val:
                             best_val = vm["val_total"]
-                            save_checkpoint(checkpoint_dir, state, name=f"stage{stage}_best",
-                                            trainable=st.trainable)
-                            with open(best_sidecar, "w") as f:
-                                json.dump({"val_total": best_val, "step": done}, f)
+                            save(f"stage{stage}_best")
+                            if coordinator:
+                                with open(best_sidecar, "w") as f:
+                                    json.dump({"val_total": best_val, "step": done}, f)
                     if (checkpoint_dir and done % scfg.save_every < spc
                             and done >= scfg.save_every):
-                        save_checkpoint(checkpoint_dir, state, name=f"stage{stage}_step{done}",
-                                        trainable=st.trainable)
-                if caught["sig"] is not None:
-                    sig, caught["sig"] = caught["sig"], None
-                    save_checkpoint(checkpoint_dir, state, name=f"stage{stage}_preempt",
-                                    trainable=st.trainable)
+                        save(f"stage{stage}_step{done}")
+                sig = preempting()
+                if sig is not None:
+                    caught["sig"] = None
+                    save(f"stage{stage}_preempt")
                     logger.log(done, {"preempted_by_signal": float(sig)})
                     restore_signals()
                     restore_sigs.clear()
@@ -258,8 +425,7 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
                     break
             epoch += 1
         if checkpoint_dir:
-            save_checkpoint(checkpoint_dir, state, name=f"stage{stage}_final",
-                            trainable=st.trainable)
+            save(f"stage{stage}_final")
     finally:
         restore_signals()
         logger.close()

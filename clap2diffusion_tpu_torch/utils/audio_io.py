@@ -1,16 +1,14 @@
-"""WAV read/write and file loading (copies of
-``clap2diffusion_tpu/utils/audio_io.py::read_wav``/``read_wav_pcm16``/
-``write_wav``/``peak_normalize`` and the numpy path of
-``clap2diffusion_tpu/utils/native_audio.py::load_audio``).
+"""Audio file reading and writing (port of
+``clap2diffusion_tpu/utils/audio_io.py``: ``read_wav``, ``read_wav_pcm16``,
+``read_audio``, ``write_wav``, ``peak_normalize``).
 
-``read_wav_pcm16`` and ``peak_normalize`` serve the pipeline's
-``load_audio``; ``load_audio`` here serves the training data path.
-
-``load_audio`` decodes a WAV, mono-averages, resamples with the port's
-polyphase resampler (``models/clap/frontend.py::resample_poly``), pads or
-crops to the target length, and returns zeros when the file cannot be
-read, as the JAX package's fallback does. Its peak-normalising option (no
-training caller uses it) and the native C++ loader are not ported yet.
+``read_wav`` reads PCM 8/16/24/32-bit and IEEE-float WAVs in numpy;
+``read_audio`` sniffs the container from its magic bytes: RIFF goes to
+``read_wav``, FLAC and mp3 to the native loader (``utils/native_audio.py``,
+mono-averaged), anything else (and mp3 without the system's libmpg123) to
+the ffmpeg command line when it is on ``PATH``. A corrupt FLAC raises. The
+polyphase resampler is ``models/clap/frontend.py::resample_poly``, the
+port's one copy.
 """
 
 from __future__ import annotations
@@ -20,8 +18,6 @@ import wave
 from typing import Optional, Tuple
 
 import numpy as np
-
-from clap2diffusion_tpu_torch.models.clap.frontend import resample_poly
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -98,6 +94,48 @@ def read_wav_pcm16(path: str) -> Optional[Tuple[np.ndarray, int]]:
     return np.frombuffer(data, dtype="<i2"), sr
 
 
+def read_audio(path: str) -> Tuple[np.ndarray, int]:
+    """Decode any supported container -> (float32 samples, sr): a WAV as
+    ``read_wav`` gives it ([channels, samples] for stereo), FLAC and mp3
+    mono-averaged [samples] through the native loader, anything else
+    through the ffmpeg command line."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"RIFF":
+        return read_wav(path)
+    is_mp3 = magic[:3] == b"ID3" or (
+        len(magic) >= 2 and magic[0] == 0xFF and (magic[1] & 0xE0) == 0xE0)
+    if magic == b"fLaC" or is_mp3:
+        from clap2diffusion_tpu_torch.utils.native_audio import decode_audio
+
+        try:
+            out = decode_audio(path)
+        except ValueError:
+            if magic == b"fLaC":
+                raise  # a corrupt FLAC stream fails here, not through ffmpeg
+            out = None  # mp3 without the system codec
+        if out is not None:
+            return out
+    return _read_via_ffmpeg(path, magic)
+
+
+def _read_via_ffmpeg(path: str, magic: bytes) -> Tuple[np.ndarray, int]:
+    import shutil
+    import subprocess
+    import tempfile
+
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        raise ValueError(
+            f"{path}: unsupported audio container (magic {magic!r}). "
+            "WAV and FLAC decode natively; for mp3/ogg/m4a install ffmpeg "
+            "(the prepare CLI then converts through it automatically).")
+    with tempfile.NamedTemporaryFile(suffix=".wav") as tmp:
+        subprocess.run([ffmpeg, "-v", "error", "-y", "-i", path, "-f", "wav", tmp.name],
+                       check=True)
+        return read_wav(tmp.name)
+
+
 def peak_normalize(x: np.ndarray, eps: float = 1e-9) -> np.ndarray:
     """Divide by the peak, as the reference's inference path does."""
     peak = np.abs(x).max()
@@ -118,19 +156,3 @@ def write_wav(path: str, x: np.ndarray, sr: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(pcm.tobytes())
-
-
-def load_audio(path: str, target_sr: int, target_len: int) -> np.ndarray:
-    """Decode + resample + zero-pad/crop one WAV -> float32 [target_len];
-    zeros when the file cannot be read."""
-    try:
-        wav, sr = read_wav(path)
-    except (OSError, ValueError, struct.error):
-        return np.zeros(target_len, np.float32)
-    if wav.ndim == 2:
-        wav = wav.mean(axis=0)
-    if sr != target_sr:
-        wav = resample_poly(wav, sr, target_sr)
-    if len(wav) < target_len:
-        wav = np.pad(wav, (0, target_len - len(wav)))
-    return wav[:target_len].astype(np.float32)

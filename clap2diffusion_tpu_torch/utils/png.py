@@ -94,3 +94,29 @@ def decode_png(data: bytes) -> np.ndarray:
         prev = line
     img = out.reshape(h, w, c)
     return img[..., 0] if c == 1 else img
+
+
+def read_rgb(path: str, size, resample=None) -> np.ndarray:
+    """An image file as uint8 RGB [H, W, 3] at ``size`` (h, w), as Pillow's
+    ``Image.open(path).convert("RGB").resize((w, h), resample)`` reads it: a
+    PNG already of that size through ``decode_png`` (Pillow's resize to the
+    same size is a copy), anything else through Pillow, which raises
+    ``ImportError`` naming it when it is not installed. ``resample=None`` is
+    Pillow's default filter."""
+    if path.lower().endswith(".png"):
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            img = decode_png(data)
+        except ValueError:  # a PNG form the decoder does not read: Pillow's
+            img = None
+        if img is not None and img.shape[:2] == tuple(size):
+            if img.ndim == 2:
+                return np.repeat(img[..., None], 3, axis=-1)
+            return np.ascontiguousarray(img[..., :3])
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"reading {path} needs Pillow (PIL): a JPEG, or an image other "
+                          f"than a {size[0]}x{size[1]} PNG") from e
+    return np.asarray(Image.open(path).convert("RGB").resize((size[1], size[0]), resample))

@@ -324,22 +324,6 @@ def test_cli_export_matches_jax(tiny, tmp_path, stage):
         assert sorted(back) == sorted(ported["hierarchical"])
 
 
-UNPORTED = {
-    "evaluate_shard": (["evaluate", "--shard", "--data-root", "x"], "item 9"),
-    "prepare_csv": (["prepare", "--csv", "x.csv", "--out", "x"], "item 8"),
-    "train_coordinator": (["train", "--stage", "2", "--coordinator", "h:1", "--device", "cpu"],
-                          "item 9"),
-}
-
-
-@pytest.mark.parametrize("name", list(UNPORTED))
-def test_cli_unported_exits_naming_its_item(name):
-    argv, item = UNPORTED[name]
-    with pytest.raises(SystemExit, match=item) as e:
-        M.main(argv)
-    assert e.value.code not in (0, None)
-
-
 def _jax_tool():
     spec = importlib.util.spec_from_file_location(
         "jax_convert_checkpoints", os.path.join(ROOT, "tools", "convert_checkpoints.py"))

@@ -517,8 +517,17 @@ def test_run_evaluation_matches_jax(tiny, eval_data, monkeypatch):
         assert np.isfinite(s[key]["mean"])
         assert abs(s[key]["mean"] - w[key]["mean"]) <= 1e-2 * abs(w[key]["mean"]) + 1e-6, key
     assert s["fid_variant"] == "torchvision"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_evaluation(pcfg, params=bridge.from_flax(jparams), device="cpu", shard=True, **kw)
+    # shard=True in one process: every lane seeded with the eval seed, as the
+    # JAX package's groups over its (8 virtual) devices seed theirs
+    got = run_evaluation(pcfg, params=bridge.from_flax(jparams), device="cpu", shard=True, **kw)
+    want = jax_run(cfg, params=jparams, shard=True, **kw)
+    assert got["config"] == want["config"] and got["config"]["shard"] is True
+    for a, b in zip(got["samples"], want["samples"]):
+        assert a["id"] == b["id"]
+        assert abs(a["audio_text_alignment"] - b["audio_text_alignment"]) <= 1e-4
+    s, w = got["summary"], want["summary"]
+    for key, tol in (("image_std", 1e-3), ("clip_score", 1e-3)):
+        assert abs(s[key]["mean"] - w[key]["mean"]) <= tol, key
 
 
 def test_run_evaluation_random_clap_text_is_stamped(eval_data):

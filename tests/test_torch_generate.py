@@ -355,10 +355,19 @@ def test_load_audio_matches_jax(tiny, tmp_path):
             np.testing.assert_allclose(got, want, atol=1e-6, err_msg=name)
     assert port.load_audio(paths["pcm16_48k_crop"]).dtype == np.int16
     assert port.load_audio(paths["pcm16_44k1"]).dtype == np.float32
-    flac = tmp_path / "a.flac"
-    flac.write_bytes(b"fLaC" + bytes(64))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        port.load_audio(str(flac))
+    # FLAC (and a corrupt one) through the native loader, as JAX reads them
+    from tests.flac_fixture import write_flac
+
+    flac = str(tmp_path / "a.flac")
+    write_flac(flac, (tone * 32767).astype(np.int16), 48_000, kind="lpc2")
+    got, want = port.load_audio(flac), jpipe.load_audio(flac)
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape == (24_000,)
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    bad = tmp_path / "bad.flac"
+    bad.write_bytes(b"fLaC" + bytes(64))
+    for pipe in (port, jpipe):
+        with pytest.raises(ValueError):
+            pipe.load_audio(str(bad))
 
 
 def _arrays():
