@@ -9,7 +9,8 @@ Phases (each raises on failure, so the exit code is non-zero):
      head-packed forward, the Winograd conv, GroupNorm; one nvcc each, in
      parallel), timed. No kernel of the port is Triton. The opt-in flags
      C2D_PACKED_FLASH, C2D_WINOGRAD, C2D_INT8 and C2D_INT8_WIRE are
-     cleared; phases 3b and 5b set C2D_PACKED_FLASH=1 for themselves only.
+     cleared; phases 3b and 5b set C2D_PACKED_FLASH=1 for themselves only,
+     phase 7a C2D_INT8=1 and phase 7b C2D_INT8_WIRE=1.
   2. A census UNet forward (CFG batch 2) and VAE decode at full SD v1.5
      geometry record the shapes the serving path gives each kernel; then
      every kernel is held against its plain PyTorch version at each of those
@@ -179,6 +180,25 @@ Phases (each raises on failure, so the exit code is non-zero):
      after every micro-step; each rank then times that agreement (a MAX
      all-reduce of one integer over Gloo, median of 50). A rank that fails
      fails the run.
+  7a. W8A8 serving (C2D_INT8=1) on phase 3's pipeline: the int8 products of
+     one UNet forward (INT8_GEMMS_PER_FORWARD, at JAX's sites) and
+     ``int8_matmul`` / ``int8_conv`` on the card against the CPU at each
+     of their shapes, at tolerance 0; a profiler trace of one int8 forward
+     with the int8 GEMM kernel under every ``aten::_int_mm``; int8 eps
+     against fp eps (cosine > INT8_COS_MIN); one UNet CFG forward timed
+     with the flag on and off; six requests, int8 among default ones (the
+     p50 of each, exact flash / GN+SiLU / GN launches and 50 forwards' int8
+     products per int8 request, the image drift against the default).
+  7b. The int8 weight wire (C2D_INT8_WIRE=1): phase 3d's converted fp32
+     checkpoint loaded in bf16 with and without the flag (load seconds, raw
+     and wire bytes), the card's expanded towers equal to the CPU's
+     expansion of the same payload at tolerance 0, one request of each
+     with exact launches and its image against phase 3's.
+  7c. The port's tools: TOOLS_STEPS stage-2 micro-steps on phase 5's data
+     without the embeddings cache, ``precompute_embeddings`` on the card,
+     the same micro-steps with the cache (time, launches, the first loss
+     within CACHE_LOSS_TOL); then ``run_lifecycle --scale 0.001
+     --skip-eval`` into a temporary root, its wall time by phase.
 
 Timing: CUDA events around repeated launches after a warm-up (inputs stay
 in L2 where they fit, as they do on the path, where the producer just wrote
@@ -217,6 +237,7 @@ import torch.nn.functional as F
 from clap2diffusion_tpu_torch.apps import main as M
 from clap2diffusion_tpu_torch.apps.server import InferenceService, serve
 from clap2diffusion_tpu_torch.core import config as C
+from clap2diffusion_tpu_torch.diffusion import pipeline as P
 from clap2diffusion_tpu_torch.diffusion.pipeline import (
     AudioToImagePipeline,
     RequestDraws,
@@ -240,6 +261,7 @@ from clap2diffusion_tpu_torch.data.fixtures import make_fixture_dataset
 from clap2diffusion_tpu_torch.ops import cuda_build
 from clap2diffusion_tpu_torch.ops import flash_attention as fa
 from clap2diffusion_tpu_torch.ops import groupnorm as gn
+from clap2diffusion_tpu_torch.ops import quant as pq
 from clap2diffusion_tpu_torch.ops import winograd as wino
 from clap2diffusion_tpu_torch.ops import winograd_pallas as wp
 from clap2diffusion_tpu_torch.train import stages as S
@@ -1559,11 +1581,12 @@ def running(service):
         thread.join(timeout=60)
 
 
-def checkpoint_phase(pipe, wav, text, uncond, first_img, seeds_img, card):
+def checkpoint_phase(pipe, wav, text, uncond, first_img, seeds_img, card, keep):
     """Phase 3d: phase 3's weights written in the published layouts, the
     port's converter tool, ``apps.main infer --checkpoint`` and the HTTP
     server over ``load_pipeline``, each image held against phase 3's or
-    3c's bits, with exact launch counts."""
+    3c's bits, with exact launch counts. The converted checkpoint is moved
+    to ``keep``'s ``pipeline`` (phase 7b loads it)."""
     tmp = tempfile.mkdtemp(prefix="c2d_ckpt_")
     verdicts, rows = {}, {}
     try:
@@ -1673,6 +1696,7 @@ def checkpoint_phase(pipe, wav, text, uncond, first_img, seeds_img, card):
                 raise AssertionError(f"served request: {row}")
         del loaded
         torch.cuda.empty_cache()
+        shutil.move(ck, os.path.join(keep, "pipeline"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log({"phase": "checkpoint_entry_points", "card": card, **rows, "served": served,
@@ -2141,6 +2165,292 @@ def lora_remat_phase(train_params, data_root, out_dir, wav, text, uncond, card, 
     return runs
 
 
+# -- phase 7: W8A8 serving, the int8 weight wire, the port's tools ----------------
+
+# One full-width UNet forward's int8 products under C2D_INT8=1, at JAX's
+# sites: 46 Conv1x1 (proj_in and proj_out of 16 transformers, 14
+# conv_shortcut), 6 products in each of the 16 transformers (self-attention's
+# fused q/k/v and to_out, cross-attention's q and to_out, the feed-forward's
+# two) and the 47 Conv3x3 whose widths pass the gate (not conv_in, conv_out).
+INT8_GEMMS_PER_FORWARD = 189
+INT8_ORDER = (True, False, False, True, True, False)  # int8 requests among default ones
+INT8_COS_MIN = 0.99  # int8 eps against fp eps (JAX's tests/test_quant.py)
+TOOLS_STEPS = 8  # stage-2 micro-steps with and without the embeddings cache
+CACHE_LOSS_TOL = 1e-2  # first loss, cache against towers, of max(1, |loss|): fp16 text_ctx
+
+
+def int8_census(unet, args):
+    """The int8 products of one UNet forward under C2D_INT8=1:
+    {("matmul", x shape, N, bias) or ("conv", x shape, Cout): calls}."""
+    seen = {}
+    lin, conv = pq.linear_q, pq.conv_q
+
+    def rec_lin(x, xq, sx, wq, sw, bias=None):
+        key = ("matmul", tuple(x.shape), wq.shape[0], bias is not None)
+        seen[key] = seen.get(key, 0) + 1
+        return lin(x, xq, sx, wq, sw, bias)
+
+    def rec_conv(x, wq, sw, bias):
+        key = ("conv", tuple(x.shape), wq.shape[0])
+        seen[key] = seen.get(key, 0) + 1
+        return conv(x, wq, sw, bias)
+
+    pq.linear_q, pq.conv_q = rec_lin, rec_conv
+    try:
+        with flag("C2D_INT8"), torch.inference_mode():
+            unet(*args)
+        torch.cuda.synchronize()
+    finally:
+        pq.linear_q, pq.conv_q = lin, conv
+    return seen
+
+
+def int8_vs_cpu(census):
+    """``int8_matmul`` and ``int8_conv`` on the card against the same
+    functions on the CPU at every census shape (bf16 inputs from a CPU
+    generator), at tolerance 0: the int32 products are exact and the fp32
+    divisions and products correctly rounded on both. Raises naming the
+    shape."""
+    gen = torch.Generator().manual_seed(7)
+    rows = []
+    for key in sorted(census, key=str):
+        if key[0] == "matmul":
+            _, xs, n, has_bias = key
+            w = (torch.randn(n, xs[-1], generator=gen) * xs[-1] ** -0.5).bfloat16()
+            fn = pq.int8_matmul
+        else:
+            _, xs, n = key
+            has_bias = True
+            w = (torch.randn(n, xs[-1], 3, 3, generator=gen) * (9 * xs[-1]) ** -0.5).bfloat16()
+            fn = pq.int8_conv
+        x = torch.randn(xs, generator=gen).bfloat16()
+        b = (torch.randn(n, generator=gen) * 0.1).bfloat16() if has_bias else None
+        t0 = time.perf_counter()
+        on_card = fn(x.cuda(), w.cuda(), None if b is None else b.cuda()).cpu()
+        ref = fn(x, w, b)
+        if on_card.dtype != ref.dtype or not torch.equal(on_card, ref):
+            d = (on_card.float() - ref.float()).abs().max().item()
+            raise AssertionError(f"{key[0]} at x {xs}, N {n}: card differs from the CPU "
+                                 f"(max |d| {d:.3g})")
+        rows.append({"kind": key[0], "x": list(xs), "n": n, "calls": census[key],
+                     "check_s": time.perf_counter() - t0})
+    return rows
+
+
+def int8_kernels_in_trace(unet, args):
+    """One UNet forward under C2D_INT8=1 in a profiler trace: the number of
+    ``aten::_int_mm`` ops, the CUDA kernels launched under them (the int8
+    GEMM) and how they were found, and the top kernels by count."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with flag("C2D_INT8"), torch.inference_mode(), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        unet(*args)
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = [e for e in events if e.device_type == DeviceType.CUDA]
+    int_mm = [e for e in events if e.name == "aten::_int_mm"]
+
+    def tally(names):
+        out = {}
+        for n in names:
+            out[n] = out.get(n, 0) + 1
+        return out
+
+    def under_int_mm(e):
+        parent = e.cpu_parent
+        while parent is not None and parent.name != "aten::_int_mm":
+            parent = parent.cpu_parent
+        return parent is not None
+
+    found, how = tally(e.name for e in cuda if under_int_mm(e)), "cpu_parent"
+    if not found:  # kernels recorded on the CPU op
+        found, how = tally(k.name for e in int_mm for k in getattr(e, "kernels", [])), "kernels"
+    if not found:  # by name: cuBLASLt's int8 GEMMs
+        found, how = tally(e.name for e in cuda if re.search(r"s8|i8|int8|imma", e.name)), "name"
+    return {"int_mm_ops": len(int_mm), "gemm_kernels": found, "found_by": how,
+            "cuda_kernels": len(cuda),
+            "int8_gemm_device_ms": sum(e.device_time_total for e in cuda
+                                       if e.name in found) / 1e3,
+            "device_ms": sum(e.device_time_total for e in cuda) / 1e3,
+            "top_kernels": sorted(tally(e.name for e in cuda).items(),
+                                  key=lambda kv: -kv[1])[:12]}
+
+
+def drop_int8_weights(unet):
+    for m in unet.modules():
+        if isinstance(getattr(m, "quant", None), pq.QuantCache):
+            m.quant = pq.QuantCache()
+
+
+def int8_phase(pipe, unet_args, wav, text, uncond, card):
+    """Phase 7a: W8A8 serving at full width on phase 3's pipeline."""
+    census = int8_census(pipe.unet, unet_args)
+    calls = sum(census.values())
+    if calls != INT8_GEMMS_PER_FORWARD:
+        raise AssertionError(f"int8 sites: {calls} products in one forward, want "
+                             f"{INT8_GEMMS_PER_FORWARD}: {census}")
+    t0 = time.perf_counter()
+    shapes = int8_vs_cpu(census)
+    vs_cpu_s = time.perf_counter() - t0
+    trace = int8_kernels_in_trace(pipe.unet, unet_args)
+    gemm_launches = sum(trace["gemm_kernels"].values())
+    log({"phase": "int8_trace", **trace})
+    if trace["int_mm_ops"] != INT8_GEMMS_PER_FORWARD or gemm_launches < INT8_GEMMS_PER_FORWARD:
+        raise AssertionError(f"int8 trace: {trace['int_mm_ops']} _int_mm ops, {gemm_launches} "
+                             f"kernels under them; want {INT8_GEMMS_PER_FORWARD} each")
+
+    with torch.inference_mode():
+        fp = pipe.unet(*unet_args).float()
+        with flag("C2D_INT8"):
+            q = pipe.unet(*unet_args).float()
+    cos = torch.nn.functional.cosine_similarity(q.flatten(), fp.flatten(), dim=0).item()
+    if not torch.isfinite(q).all() or cos <= INT8_COS_MIN:
+        raise AssertionError(f"int8 eps against fp eps: cosine {cos:.6f}")
+    fwd_ms = {}
+    for on in (False, True, True, False):
+        with flag("C2D_INT8") if on else contextlib.nullcontext(), torch.inference_mode():
+            fwd_ms.setdefault(on, []).append(time_ms(lambda: pipe.unet(*unet_args)))
+
+    wall, imgs, per_request = {True: [], False: []}, {}, []
+    reset_counts()
+    pq.int8_gemm.reset()
+    for i, on in enumerate(INT8_ORDER):
+        before, gemms = counts(), pq.int8_gemm.calls
+        with flag("C2D_INT8") if on else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            img = pipe.generate(waveform=wav, text_ids=text, uncond_ids=uncond,
+                                model_type="hierarchical", num_steps=50, guidance_scale=7.5,
+                                seed=0)
+            wall[on].append(time.perf_counter() - t0)
+        got = launches_since(before)
+        n_gemm = pq.int8_gemm.calls - gemms
+        if img.shape != (1, 512, 512, 3) or img.dtype != np.uint8 or img.std() == 0:
+            raise AssertionError(f"int8-phase request {i}: image {img.shape} {img.dtype}")
+        if got != REQUEST_LAUNCHES[50] or n_gemm != (50 * INT8_GEMMS_PER_FORWARD if on else 0):
+            raise AssertionError(f"int8-phase request {i} (int8 {on}): launches {got}, "
+                                 f"int8 products {n_gemm}")
+        imgs.setdefault(on, []).append(img)
+        per_request.append({"int8": on, "seconds": wall[on][-1], "launches": got,
+                            "int8_products": n_gemm})
+    launches = counts()
+    drift = image_diff(imgs[True][0], imgs[False][0])
+    repeat = {on: all(np.array_equal(im, ims[0]) for im in ims) for on, ims in imgs.items()}
+    drop_int8_weights(pipe.unet)
+    torch.cuda.empty_cache()
+    out = {"card": card, "unet_forward_ms": {"int8": fwd_ms[True], "default": fwd_ms[False]},
+           "p50_s": {"int8": statistics.median(wall[True]),
+                     "default": statistics.median(wall[False])},
+           "requests": per_request, "eps_cosine_int8_vs_fp": cos,
+           "image_drift_vs_default": drift, "repeat_bit_equal": repeat,
+           "products_per_forward": calls,
+           "distinct_shapes": len(census), "card_vs_cpu_shapes": len(shapes),
+           "card_vs_cpu_s": vs_cpu_s,
+           "int8_request_launches": next(r["launches"] for r in per_request if r["int8"]),
+           "launches_total": launches}
+    log({"phase": "int8_serving", **out, "shapes": shapes})
+    return out
+
+
+def wire_phase(cfg, ck, wav, text, uncond, first_img, card):
+    """Phase 7b: phase 3d's converted checkpoint (fp32) loaded in bf16 with
+    and without C2D_INT8_WIRE=1: bytes and load seconds of each; the card's
+    expanded towers equal to the CPU's expansion of the same payload at
+    tolerance 0; one request of each, the wire's image drift logged."""
+    from clap2diffusion_tpu_torch.utils import wire
+
+    rows, kw = {}, dict(waveform=wav, text_ids=text, uncond_ids=uncond, num_steps=50,
+                        guidance_scale=7.5, seed=0)
+    for on in (False, True):
+        with flag("C2D_INT8_WIRE") if on else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            loaded = load_pipeline(cfg, ck, dtype=torch.bfloat16, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        before = counts()
+        img = loaded.generate(**kw)
+        got = launches_since(before)
+        if got != REQUEST_LAUNCHES[50] or img.shape != (1, 512, 512, 3) or img.std() == 0:
+            raise AssertionError(f"wire {on}: launches {got}, image {img.shape}")
+        rows["wire" if on else "default"] = {"load_s": load_s, "stats": loaded.wire_stats,
+                                             "image_vs_phase3": image_diff(img, first_img)}
+        if on:
+            host = P.restore_params_host(ck)
+            host = {t: {k: v.to(torch.bfloat16) for k, v in sd.items()} for t, sd in host.items()}
+            payload, stats = wire.quantize_wire(host, wire.tower_layouts(cfg, host))
+            on_cpu = wire.dequantize_wire(payload, {t: torch.device("cpu") for t in payload})
+            if stats != loaded.wire_stats:
+                raise AssertionError(f"wire stats: {loaded.wire_stats} against the CPU's {stats}")
+            for tower, sd in loaded.params.items():
+                for k, t in sd.items():
+                    want = on_cpu[tower][k]
+                    if not torch.equal(t.cpu().to(want.dtype), want) or \
+                            (tower not in P.FP32_TOWERS and t.dtype != want.dtype):
+                        raise AssertionError(f"wire: {tower}.{k} on the card differs from the "
+                                             "CPU's expansion")
+            del host, payload, on_cpu
+        del loaded
+        torch.cuda.empty_cache()
+    log({"phase": "int8_wire", "card": card, **rows})
+    return rows
+
+
+def tools_phase(cfg, params, data_root, out_dir, card):
+    """Phase 7c: stage-2 micro-steps without the embeddings cache, the
+    port's ``precompute_embeddings`` on phase 5's data, the same micro-steps
+    with the cache (same seed: the first loss agrees within CACHE_LOSS_TOL);
+    then ``run_lifecycle --scale 0.001 --skip-eval`` into a temporary root."""
+    from clap2diffusion_tpu_torch.tools import run_lifecycle as RL
+    from clap2diffusion_tpu_torch.tools.precompute_embeddings import precompute
+
+    runs = {}
+    for cached in (False, True):
+        if cached:
+            t0 = time.perf_counter()
+            n_emb = precompute(cfg, params, data_root, device="cuda")
+            torch.cuda.synchronize()
+            precompute_s = time.perf_counter() - t0
+        state, steps, wall, peak = train_phase(cfg, params, 2, TOOLS_STEPS, data_root,
+                                               os.path.join(out_dir, f"cache_{cached}"))
+        check_training(2, cfg, params, state, steps)
+        del state
+        runs[cached] = {"micro_step_s": [r["seconds"] for r in steps],
+                        "median_after_first_s": statistics.median(
+                            r["seconds"] for r in steps[1:]),
+                        "launches_per_step": steps[-1]["launches"],
+                        "first_loss": steps[0]["losses"]["total"], "run_stage_wall_s": wall}
+    a, b = runs[False]["first_loss"], runs[True]["first_loss"]
+    if abs(a - b) > CACHE_LOSS_TOL * max(1.0, abs(a)):
+        raise AssertionError(f"first loss with the embeddings cache {b} against {a} without")
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="c2d_lifecycle_")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        if RL.main(["--scale", "0.001", "--skip-eval", "--root", root]) != 0:
+            raise AssertionError("run_lifecycle failed")
+        life_s = time.perf_counter() - t0
+        with open(os.path.join(root, "lifecycle_summary.json")) as f:
+            summary = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if set(summary["stages"]) != {"stage1", "stage2", "stage3"} or not all(
+            np.isfinite(s.get("last_total", np.nan)) for s in summary["stages"].values()):
+        raise AssertionError(f"run_lifecycle: {summary['stages']}")
+    out = {"card": card, "embeddings_written": n_emb, "precompute_s": precompute_s,
+           "without_cache": runs[False], "with_cache": runs[True],
+           "lifecycle_wall_s": life_s, "lifecycle_budgets": summary["budgets"],
+           "lifecycle_phases": {p["phase"]: p["wall_s"] for p in summary["phases"]},
+           "lifecycle_stages": summary["stages"], "lifecycle_launches": counts()}
+    log({"phase": "tools", **out})
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -2482,7 +2792,8 @@ def main() -> int:
         errs[kind] = max(errs[kind], err)
 
     # -- 3d. checkpoint and entry points at full width ---------------------------
-    checkpoint_phase(pipe, wav, text, uncond, first_img, gen_out["images"]["seeds"], card)
+    kept = tempfile.mkdtemp(prefix="c2d_kept_")  # phase 3d's checkpoint, for phase 7b
+    checkpoint_phase(pipe, wav, text, uncond, first_img, gen_out["images"]["seeds"], card, kept)
 
     # -- 3e. best-of-n at full width ---------------------------------------------
     p50 = statistics.median(times[1:])
@@ -2629,6 +2940,17 @@ def main() -> int:
 
     # -- 6c. two data-parallel ranks on the one card over Gloo -------------------
     gloo = gloo_phase(data_root, card)
+    torch.cuda.empty_cache()
+
+    # -- 7a. W8A8 serving (C2D_INT8=1) at full width ---------------------------------
+    int8 = int8_phase(pipe, unet_args, wav, text, uncond, card)
+
+    # -- 7b. the int8 weight wire (C2D_INT8_WIRE=1) -----------------------------------
+    wire_phase(cfg, os.path.join(kept, "pipeline"), wav, text, uncond, first_img, card)
+    shutil.rmtree(kept, ignore_errors=True)
+
+    # -- 7c. the port's tools: precompute_embeddings, run_lifecycle ------------------
+    tools = tools_phase(train_cfg, train_params, data_root, tmp, card)
     shutil.rmtree(tmp, ignore_errors=True)
 
     # -- the kernels line -----------------------------------------------------
@@ -2676,6 +2998,9 @@ def main() -> int:
                 "flash_attention" if kind == "flash_attention_fwd" else kind],
             "process_group_launches_per_micro_step": nccl["launches_per_micro_step"][
                 "flash_attention" if kind == "flash_attention_fwd" else kind],
+            "int8_request_launches": int8["int8_request_launches"][i],
+            "lifecycle_launches": tools["lifecycle_launches"][
+                "flash_attention" if kind == "flash_attention_fwd" else kind],
         })
         if kind == "group_norm_silu":
             kernels[-1].update({
@@ -2714,6 +3039,7 @@ def main() -> int:
             "flash_attention_bwd"],
         "gloo_two_ranks_launches_per_micro_step": gloo["launches_per_micro_step"][
             "flash_attention_bwd"],
+        "lifecycle_launches": tools["lifecycle_launches"]["flash_attention_bwd"],
     })
     # the packed forward per image under C2D_PACKED_FLASH=1 (phase 3b), bf16
     rows_p = rows["packed_flash_attention_fwd"]

@@ -30,8 +30,9 @@ variables, or ``C2D_AUTO_DIST=1`` under torchrun); ``evaluate --shard``
 reads the same variables and fans the generation out over the processes.
 ``prepare --encode-latents`` encodes the frames with the VAE on the card
 (``--device cpu`` for the CPU), with random VAE weights, as the JAX CLI
-does. Not ported yet, and exiting non-zero with the ROADMAP item they wait
-for: ``C2D_INT8=1`` and ``C2D_INT8_WIRE=1`` (Queue 1, item 10).
+does. ``C2D_INT8=1`` serves through the W8A8 UNet (``ops/quant.py``; ``train``
+refuses it) and ``C2D_INT8_WIRE=1`` loads ``--checkpoint`` over the int8
+weight wire (``utils/wire.py``), as in the JAX package.
 """
 
 from __future__ import annotations

@@ -17,9 +17,12 @@ inpainting (``mask_image``), two-audio mixing (``waveform2``,
 ``audio_mix``), per-lane seeds (``seeds``) and ``generate_stream``.
 
 Numerics follow the JAX program with bf16 parameters: the CLAP tower and
-the conditioning stack (hierarchical, adapter) compute in fp32 (the JAX
-package promotes their bf16 weights against the fp32 CLAP input), the CLIP
-text encoder, the UNet and the VAE compute in the parameter type.
+the conditioning stack (hierarchical, adapter) compute in fp32 from the
+bf16-rounded weights (the JAX package promotes their bf16 weights against
+the fp32 CLAP input), apart from the few ops JAX runs on those parameters
+alone, in their own type (the router's softmax and gates, the adapter's
+query sum: ``param_dtype``); the CLIP text encoder, the UNet and the VAE
+compute in the parameter type.
 
 Random draws: the JAX program draws with threefry from ``key(seed)``,
 which torch cannot reproduce. Every draw of a request here goes through
@@ -263,16 +266,16 @@ def load_pipeline(cfg: Config, path: str, dtype: Optional[torch.dtype] = None,
     """A pipeline from a ``save_pipeline`` checkpoint, on ``device`` (CUDA
     unless the caller asks for the CPU). The six core towers must be there
     and match ``cfg``'s geometry, name for name and shape for shape, or
-    this raises before any weight reaches the device. ``dtype`` casts the
-    towers that compute in the parameter type (``FP32_TOWERS`` stay fp32)
-    and, as the JAX ``load_pipeline`` casts every tower, the other towers of
-    the checkpoint, which ride along on the CPU in ``pipe.extra_params``.
-    ``C2D_INT8_WIRE=1`` (the JAX package's int8 upload) is not ported and
-    raises."""
-    if os.environ.get("C2D_INT8_WIRE") == "1":
-        raise NotImplementedError(
-            "C2D_INT8_WIRE=1 (the int8 weight upload of clap2diffusion_tpu/utils/wire.py) is "
-            "not ported to the PyTorch package yet (ROADMAP Queue 1, item 10); unset it")
+    this raises before any weight reaches the device. ``dtype`` casts every
+    tower, as the JAX ``load_pipeline`` does; the towers that compute in
+    fp32 (``FP32_TOWERS``) then hold the cast values in fp32, the values
+    the JAX program promotes, and the towers beyond the core six ride along
+    on the CPU in ``pipe.extra_params``.
+
+    ``C2D_INT8_WIRE=1``: after the cast, the large weights cross to the
+    device as int8 with per-channel scales and are expanded there
+    (``utils/wire.py``); ``pipe.wire_stats`` holds the raw and wire bytes
+    and the leaf counts."""
     params = restore_params_host(path)
     missing = set(CORE_TOWERS) - set(params)
     if missing:
@@ -287,10 +290,23 @@ def load_pipeline(cfg: Config, path: str, dtype: Optional[torch.dtype] = None,
                              "config's geometry (structure or shapes differ) — wrong --config "
                              "for this checkpoint?")
     if dtype is not None:
-        for tower in params:
-            want = torch.float32 if tower in FP32_TOWERS else dtype
-            params[tower] = {k: v.to(want) for k, v in params[tower].items()}
-    return AudioToImagePipeline(cfg, params=params, device=device)
+        params = {tower: {k: v.to(dtype) for k, v in sd.items()}
+                  for tower, sd in params.items()}
+    stats = None
+    if os.environ.get("C2D_INT8_WIRE") == "1":
+        from clap2diffusion_tpu_torch.utils import wire
+
+        dev = resolve_device(device)
+        payload, stats = wire.quantize_wire(params, wire.tower_layouts(cfg, params))
+        params = wire.dequantize_wire(payload, {
+            t: dev if t in mods else torch.device("cpu") for t in params})
+    if dtype is not None:
+        for tower in FP32_TOWERS:
+            if tower in params:
+                params[tower] = {k: v.to(torch.float32) for k, v in params[tower].items()}
+    pipe = AudioToImagePipeline(cfg, params=params, device=device)
+    pipe.wire_stats = stats
+    return pipe
 
 
 class HostCopy:
@@ -462,6 +478,7 @@ class AudioToImagePipeline:
         self.extra_params: Dict[str, Dict[str, torch.Tensor]] = {
             k: v for k, v in params.items() if k not in mods}
         self._scorer = None  # best-of's CLIP towers on the device, built on first use
+        self.wire_stats = None  # load_pipeline's int8 wire: bytes and leaf counts
         if "adapter" not in params:
             del mods["adapter"]
         for name, m in mods.items():
@@ -469,6 +486,9 @@ class AudioToImagePipeline:
             m.load_state_dict(params[name], strict=True)
             tower_type = torch.float32 if name in FP32_TOWERS else dtype
             m.to(tower_type).eval().requires_grad_(False)
+            for sub in m.modules():  # the ops JAX runs in the parameter type
+                if hasattr(sub, "param_dtype"):
+                    sub.param_dtype = dtype
         mods["unet"].to(memory_format=torch.channels_last)
         mods["vae"].to(memory_format=torch.channels_last)
         self.clap_audio = mods["clap_audio"]

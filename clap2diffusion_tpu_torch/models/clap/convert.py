@@ -7,13 +7,14 @@ one (under ``audio_encoder.``); the projection is ``audio_projection.`` in
 both. ``convert_clap_text`` takes the text side of a ``ClapModel``
 (``text_model.*`` or the same keys without the prefix, and
 ``text_projection.*``). The port's towers carry the HF names, so the keys
-are picked and checked as in ``models/convert.py``; ``logit_scale_*`` and
-every other key are ignored.
+are picked and checked as in ``models/convert.py``; every other key is
+ignored. ``convert_clap`` converts a whole ``ClapModel`` dict: both towers
+and the ``logit_scale_a`` / ``logit_scale_t`` extras.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import torch
 
@@ -53,3 +54,13 @@ def convert_clap_text(sd: Mapping, cfg: CLAPTextConfig | None = None) -> Dict[st
         sd, model, "text_model." if full else "", what="CLAP text").items()}
     out.update(select(sd, proj, what="CLAP text"))
     return out
+
+
+def convert_clap(sd: Mapping, audio_cfg: HTSATConfig | None = None,
+                 text_cfg: CLAPTextConfig | None = None
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, float]]:
+    """A whole HF ClapModel state dict -> (the audio tower's state dict,
+    the text tower's, and the extras ``logit_scale_a`` / ``logit_scale_t``
+    where the dict has them, as floats)."""
+    extras = {k: float(sd[k]) for k in ("logit_scale_a", "logit_scale_t") if k in sd}
+    return convert_clap_audio(sd, audio_cfg), convert_clap_text(sd, text_cfg), extras

@@ -48,7 +48,10 @@ class AudioSelfAttention(nn.Module):
 
 
 class AudioTokenGenerator(nn.Module):
-    """CLAP vector -> refined audio token sequence."""
+    """CLAP vector -> refined audio token sequence. The learned queries and
+    their positions are summed in ``param_dtype`` (a bf16 pipeline's, set
+    by ``AudioToImagePipeline``; fp32 by default), as the JAX program sums
+    the two parameters in their own type before the fp32 compute."""
 
     def __init__(self, cfg: ConditionConfig):
         super().__init__()
@@ -64,12 +67,14 @@ class AudioTokenGenerator(nn.Module):
         self.self_attn_layers = nn.ModuleList([AudioSelfAttention(d, cfg.adapter_heads)
                                                for _ in range(cfg.adapter_self_attn_layers)])
         self.output_proj = nn.ModuleList([nn.Linear(d, d), nn.LayerNorm(d, eps=1e-5)])
+        self.param_dtype = torch.float32
 
     def forward(self, audio_embedding: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b = audio_embedding.shape[0]
         n, d = self.audio_queries.shape
-        q = (self.audio_queries + self.pos_embed)[None].expand(b, n, d).to(audio_embedding.dtype)
+        qp = self.audio_queries.to(self.param_dtype) + self.pos_embed.to(self.param_dtype)
+        q = qp[None].expand(b, n, d).to(audio_embedding.dtype)
         kv = self.audio_to_kv
         h = dropout(F.gelu(kv[0](audio_embedding)), DROPOUT, deterministic, generator)
         kv = kv[3](h).reshape(b, n, 2, d)

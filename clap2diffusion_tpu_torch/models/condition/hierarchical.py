@@ -120,7 +120,13 @@ class AdaptiveHierarchyWeights(nn.Module):
 
 class LevelToUNetRouter(nn.Module):
     """Route tokens to the UNet's early/mid/late levels through a
-    row-softmaxed 3x3 routing matrix and per-level sigmoid gates."""
+    row-softmaxed 3x3 routing matrix and per-level sigmoid gates.
+
+    The softmax and the sigmoids are the JAX package's formulas, op by op,
+    in ``param_dtype``: the type the JAX program holds these parameters in
+    (a bf16 pipeline's, set by ``AudioToImagePipeline``; fp32 by default).
+    JAX computes them in that type, where the rest of the tower promotes
+    to fp32, so a bf16 pipeline rounds each of their ops to bf16."""
 
     def __init__(self, cfg: ConditionConfig):
         super().__init__()
@@ -128,18 +134,23 @@ class LevelToUNetRouter(nn.Module):
         self.level_gates = nn.ParameterDict({
             lvl: nn.Parameter(torch.full((1,), cfg.router_gate_init)) for lvl in LEVELS
         })
+        self.param_dtype = torch.float32
 
     def forward(self, tokens: torch.Tensor, assignments: torch.Tensor,
                 hierarchy_weights: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         if hierarchy_weights is not None:
             assignments = assignments * hierarchy_weights[:, None, :]
             assignments = assignments / (assignments.sum(-1, keepdim=True) + 1e-8)
-        routing = assignments @ torch.softmax(self.routing_matrix, dim=1)
-        return {
-            lvl: tokens * routing[:, :, i:i + 1].to(tokens.dtype)
-            * torch.sigmoid(self.level_gates[lvl]).to(tokens.dtype)
-            for i, lvl in enumerate(LEVELS)
-        }
+        m = self.routing_matrix.to(self.param_dtype)
+        u = torch.exp(m - m.amax(dim=1, keepdim=True))  # jax.nn.softmax
+        routing = assignments @ (u / u.sum(dim=1, keepdim=True)).to(assignments.dtype)
+        out = {}
+        for i, lvl in enumerate(LEVELS):
+            g = self.level_gates[lvl].to(self.param_dtype)
+            one = torch.ones_like(g)
+            gate = (one / (one + torch.exp(-g))).to(tokens.dtype)  # jax.nn.sigmoid
+            out[lvl] = tokens * routing[:, :, i:i + 1].to(tokens.dtype) * gate
+        return out
 
 
 class _PackedAttention(nn.Module):

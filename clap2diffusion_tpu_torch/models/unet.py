@@ -14,8 +14,16 @@ the JAX package are read per call from the same environment variables:
 head-packed kernel (``ops/attention.py::mha``), and ``C2D_WINOGRAD=1`` runs
 the eligible 3x3 convs (``Conv3x3``: ``conv_in``, ``conv_out``, each
 ResnetBlock's ``conv1``/``conv2`` and the ``Upsample`` conv, as in JAX) as
-the plain-PyTorch Winograd of ``ops/winograd.py``. ``C2D_INT8=1`` (the JAX
-W8A8 serving path, ``ops/quant.py``) is not ported: the forward raises.
+the plain-PyTorch Winograd of ``ops/winograd.py``. ``C2D_INT8=1`` is the
+JAX package's W8A8 serving path (``ops/quant.py``), at its sites: the
+UNet's 1x1 convs (``conv_shortcut``, ``proj_in``, ``proj_out``; the VAE's
+stay fp), the attention projections (self-attention's q, k and v as one
+product over one activation scale, or left fp under ``C2D_FUSED_QKV=0`` as
+in JAX; cross-attention's q alone, its K/V of the text context stay fp;
+``to_out`` in both), the feed-forward's two projections and the eligible
+3x3 convs (``Conv3x3``, ahead of the Winograd route), each behind its width
+gate. ``Downsample``, the time embedding, ``time_emb_proj`` and the
+audio-injection branches stay fp.
 
 ``cfg.remat`` (the JAX package's ``nn.remat`` of every ``ResnetBlock`` and
 ``Transformer2D``) runs those blocks under ``torch.utils.checkpoint`` when
@@ -44,6 +52,7 @@ from clap2diffusion_tpu_torch.models.layers import (
     conv3x3,
     upsample_nearest2x,
 )
+from clap2diffusion_tpu_torch.ops import quant
 from clap2diffusion_tpu_torch.ops.attention import mha
 from clap2diffusion_tpu_torch.ops.winograd import Conv3x3
 
@@ -72,6 +81,32 @@ class TimeEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
+class QConv1x1(Conv1x1):
+    """The UNet's 1x1 conv: the int8 product under ``C2D_INT8=1`` when
+    ``quant.eligible(cin, cout)``, else ``Conv1x1``'s matmul. The VAE keeps
+    the plain ``Conv1x1``."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout)
+        self.quant = quant.QuantCache()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not quant.eligible(self.in_channels, self.out_channels):
+            return super().forward(x)
+        wq, sw = self.quant.get("w", (self.weight,),
+                                lambda w: quant.quantize_weight(w.flatten(1), 0))
+        xq, sx = quant.quantize_dynamic(x)
+        return quant.linear_q(x, xq, sx, wq, sw, self.bias)
+
+
+def _linear_q(cache: quant.QuantCache, slot: str, linear: nn.Linear,
+              x: torch.Tensor) -> torch.Tensor:
+    """``linear(x)`` as the int8 product, its weight quantised once."""
+    wq, sw = cache.get(slot, (linear.weight,), lambda w: quant.quantize_weight(w, 0))
+    xq, sx = quant.quantize_dynamic(x)
+    return quant.linear_q(x, xq, sx, wq, sw, linear.bias)
+
+
 class ResnetBlock(nn.Module):
     def __init__(self, cin: int, cout: int, temb_dim: int, groups: int):
         super().__init__()
@@ -80,7 +115,7 @@ class ResnetBlock(nn.Module):
         self.time_emb_proj = nn.Linear(temb_dim, cout)
         self.norm2 = GroupNorm(cout, groups, 1e-5, silu=True)
         self.conv2 = Conv3x3(cout, cout)
-        self.conv_shortcut = Conv1x1(cin, cout) if cin != cout else None
+        self.conv_shortcut = QConv1x1(cin, cout) if cin != cout else None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         h = self.conv1(self.norm1(x))
@@ -105,12 +140,28 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(ctx, query_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
         self.num_heads, self.use_flash = num_heads, use_flash
+        self.quant = quant.QuantCache()
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = x if context is None else context
-        out = mha(self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.num_heads,
-                  use_flash=self.use_flash)
-        return self.to_out[0](out)
+        if not quant.eligible(x.shape[-1], self.to_q.out_features):
+            out = mha(self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.num_heads,
+                      use_flash=self.use_flash)
+            return self.to_out[0](out)
+        if context is None and os.environ.get("C2D_FUSED_QKV", "1") != "0":
+            # JAX's fused [C, 3C] product: one activation scale, a scale per
+            # output column; q, k and v are strided views of the product
+            wq, sw = self.quant.get(
+                "qkv", (self.to_q.weight, self.to_k.weight, self.to_v.weight),
+                lambda *w: quant.quantize_weight(torch.cat(w), 0))
+            xq, sx = quant.quantize_dynamic(x)
+            q, k, v = quant.linear_q(x, xq, sx, wq, sw).chunk(3, dim=-1)
+        elif context is not None:
+            q, k, v = _linear_q(self.quant, "q", self.to_q, x), self.to_k(ctx), self.to_v(ctx)
+        else:
+            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        out = mha(q, k, v, self.num_heads, use_flash=self.use_flash)
+        return _linear_q(self.quant, "out", self.to_out[0], out)
 
 
 class GEGLU(nn.Module):
@@ -131,9 +182,14 @@ class GEGLUFeedForward(nn.Module):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
                                   nn.Linear(dim * mult, dim)])
+        self.dim = dim
+        self.quant = quant.QuantCache()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        if not quant.eligible(self.dim):
+            return self.net[2](self.net[0](x))
+        h, gate = _linear_q(self.quant, "in", self.net[0].proj, x).chunk(2, dim=-1)
+        return _linear_q(self.quant, "out", self.net[2], h * F.gelu(gate))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -160,11 +216,11 @@ class Transformer2D(nn.Module):
                  use_flash: bool):
         super().__init__()
         self.norm = GroupNorm(channels, groups, 1e-6, silu=False)
-        self.proj_in = Conv1x1(channels, channels)
+        self.proj_in = QConv1x1(channels, channels)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(channels, num_heads, context_dim, use_flash)]
         )
-        self.proj_out = Conv1x1(channels, channels)
+        self.proj_out = QConv1x1(channels, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -274,10 +330,6 @@ class UNet2DCondition(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 audio_routed: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        if os.environ.get("C2D_INT8") == "1":
-            raise NotImplementedError(
-                "C2D_INT8=1 (the W8A8 serving path of clap2diffusion_tpu/ops/quant.py) is not "
-                "ported to the PyTorch package yet (ROADMAP.md, Queue 1 item 10); unset it")
         cfg = self.cfg
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(temb.to(sample.dtype))

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from clap2diffusion_tpu_torch.ops import quant
+
 # F(2x2, 3x3) transform constants (Lavin & Gray, "Fast Algorithms for
 # Convolutional Neural Networks"); the JAX package's values.
 _BT = np.array(
@@ -118,13 +120,22 @@ class Conv3x3(nn.Conv2d):
     """The UNet's 3x3 stride-1 conv over NHWC (the JAX ``Conv3x3``), with
     ``nn.Conv2d``'s parameters (``weight`` [O, I, 3, 3], ``bias``) so the
     diffusers converters read its ``state_dict()``. The parameters are cast
-    down to x's type. ``C2D_WINOGRAD=1`` with an eligible shape runs
-    ``conv3x3_winograd``; anything else the direct conv."""
+    down to x's type. ``C2D_INT8=1`` with ``quant.conv_eligible(cin, cout)``
+    runs the int8 conv (``ops/quant.py``); else ``C2D_WINOGRAD=1`` with an
+    eligible shape runs ``conv3x3_winograd``; anything else the direct
+    conv."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 3, padding=1)
+        self.quant = quant.QuantCache()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.conv_eligible(self.in_channels, self.out_channels):
+            # W8A8 (C2D_INT8=1) ahead of the Winograd route; the weight cast
+            # to x's type first, as in JAX, and quantised once
+            wq, sw = self.quant.get(f"w:{x.dtype}", (self.weight,),
+                                    lambda w: quant.conv_weight_q(w.to(x.dtype)))
+            return quant.conv_q(x, wq, sw, self.bias.to(x.dtype))
         w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
         if os.environ.get("C2D_WINOGRAD") == "1" and eligible(
                 x.shape, (3, 3), (1, 1), "SAME"):

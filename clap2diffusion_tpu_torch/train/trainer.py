@@ -108,6 +108,19 @@ class EmbeddingFrontend:
         self.tokenizer = CLIPTokenizer(max_length=cfg.diffusion.clip_text.max_length)
 
     @torch.no_grad()
+    def encode_audio(self, wav) -> torch.Tensor:
+        """Waveforms [B, samples] -> CLAP embeddings [B, 512] (fp32)."""
+        wav = torch.as_tensor(np.asarray(wav, np.float32), device=self.device)
+        return self.clap(log_mel_spectrogram(wav, self.cfg.clap.frontend))
+
+    @torch.no_grad()
+    def encode_text(self, ids):
+        """Token ids [B, 77] -> (text context [B, 77, 768], its mean over
+        tokens [B, 768])."""
+        ctx = self.clip(torch.as_tensor(np.asarray(ids, np.int32), device=self.device))
+        return ctx, ctx.mean(dim=1)
+
+    @torch.no_grad()
     def embed_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         dev = self.device
         latent = torch.as_tensor(np.asarray(batch["latent"], np.float32), device=dev)
@@ -115,11 +128,9 @@ class EmbeddingFrontend:
         if cached is not None:
             return {**{k: torch.as_tensor(v, device=dev) for k, v in cached.items()},
                     "latent": latent}
-        wav = torch.as_tensor(np.asarray(batch["audio"], np.float32), device=dev)
-        clap = self.clap(log_mel_spectrogram(wav, self.cfg.clap.frontend))
-        ids = torch.as_tensor(np.asarray(self.tokenizer(batch["caption"]), np.int32), device=dev)
-        ctx = self.clip(ids)
-        return {"clap": clap, "latent": latent, "text_ctx": ctx, "text_emb": ctx.mean(dim=1)}
+        ctx, emb = self.encode_text(self.tokenizer(batch["caption"]))
+        return {"clap": self.encode_audio(batch["audio"]), "latent": latent,
+                "text_ctx": ctx, "text_emb": emb}
 
     def _load_cached(self, ids) -> Optional[Dict[str, np.ndarray]]:
         if not self.emb_dir or not ids:

@@ -9,8 +9,7 @@ the JAX package (``clap2diffusion_tpu/train/lora.py``, ``nn.remat``).
   without remat);
 - ``run_stage(..., lora_rank=4, device="cpu")`` moving only the trainable
   leaves, with and without remat; ``merge_stage_params`` folding from the
-  EMA shadow as the JAX one does;
-- ``C2D_INT8=1`` refused by the UNet, naming Queue 1 item 10.
+  EMA shadow as the JAX one does.
 
 fp32 at ``tests/test_pipeline.py::tiny_config``. Tolerances: 1e-4 of
 max|ref| (+1e-4 relative) for losses and gradients, as
@@ -369,11 +368,3 @@ def test_merge_stage_params_folds_from_the_ema_as_jax(tiny):
         k: v for k, v in ported["unet"].items() if k.startswith("audio_inject.")},
         "lora": lora}}, 2)
     assert "lora" not in bare and all(k.startswith("audio_inject.") for k in bare["unet"])
-
-
-def test_unet_refuses_int8_naming_item_10(tiny, monkeypatch):
-    _, pcfg, base = tiny
-    unet = UNet2DCondition(pcfg.diffusion.unet)
-    monkeypatch.setenv("C2D_INT8", "1")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        unet(torch.zeros(1, 8, 8, 4), torch.tensor([1]), torch.zeros(1, 7, 48))

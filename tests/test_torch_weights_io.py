@@ -16,7 +16,7 @@
 - loading and saving: ``load_torch_checkpoint`` on a reference-format
   ``.pth``, the ``save_pipeline`` -> ``load_pipeline`` round trip (same
   bits), geometry and missing-tower errors with the JAX messages,
-  ``C2D_INT8_WIRE=1`` refused, ``cached_init_params`` hit and miss.
+  a load under ``C2D_INT8_WIRE=1``, ``cached_init_params`` hit and miss.
 
 Sizes are ``tests/test_pipeline.py::tiny_config``'s; the conditioning
 converters run at the reference's own geometry (``ConditionConfig()``,
@@ -416,6 +416,86 @@ def test_save_load_pipeline_round_trip(tiny, tmp_path, dtype):
     assert np.array_equal(loaded.generate(**kw), pipe.generate(**kw))
 
 
+def test_load_pipeline_bf16_rounds_the_fp32_towers_as_jax(tiny, tmp_path):
+    """An fp32 checkpoint of the same JAX-initialised weights in each package,
+    loaded with bf16: every tower equals ``from_flax`` of the JAX load (the
+    towers that compute in fp32 hold bf16-rounded values, as the JAX
+    program computes with), and the conditioning tokens agree within the
+    slice tests' fp32 tolerance."""
+    from clap2diffusion_tpu.diffusion.pipeline import load_pipeline as jax_load_pipeline
+    from clap2diffusion_tpu.diffusion.pipeline import save_pipeline as jax_save_pipeline
+    from tests.test_torch_models import close
+
+    cfg, pcfg, jparams = tiny
+    jpipe = jax_load_pipeline(cfg, jax_save_pipeline(str(tmp_path / "jax"), jparams),
+                              dtype=jnp.bfloat16)
+    pipe = P.load_pipeline(pcfg, P.save_pipeline(str(tmp_path / "port"),
+                                                 bridge.from_flax(jparams)),
+                           dtype=torch.bfloat16, device="cpu")
+    want = bridge.from_flax(jax.tree.map(lambda x: np.asarray(x, np.float32), jpipe.params))
+    for tower, sd in want.items():
+        for k, t in sd.items():
+            assert torch.equal(pipe.params[tower][k].float(), t), (tower, k)
+    assert pipe.params["clap_audio"][next(iter(want["clap_audio"]))].dtype == torch.float32
+
+    wav = (np.random.default_rng(3).normal(size=(1, cfg.clap.frontend.num_samples)) * 0.1
+           ).astype(np.float32)
+    jclap_emb = jpipe.encode_audio(jnp.asarray(wav))
+    clap_emb = pipe.encode_audio(wav)
+    close(clap_emb, np.asarray(jclap_emb))
+    for model_type in ("hierarchical", "sonic"):
+        ref = jpipe._condition(jpipe.params, jclap_emb, model_type, 60.0, 0.7)
+        with torch.no_grad():
+            ours = pipe._condition(clap_emb, model_type, 60.0, 0.7)
+        if ref[0] is not None:
+            close(ours[0], np.asarray(ref[0]))
+        for lvl in ("early", "mid", "late"):
+            close(ours[1][lvl], np.asarray(ref[1][lvl]))
+
+
+@pytest.mark.parametrize("tower", ["hierarchical", "adapter"])
+def test_param_type_ops_follow_jax_in_bf16(tiny, tower):
+    """The ops JAX runs on a bf16 conditioning tower's parameters in bf16
+    (the router's softmax and gates, the adapter's query sum), in the port
+    with ``param_dtype`` bf16 on fp32 weights of the same values: within
+    fp32 summation order of JAX's bf16 tower; ``param_dtype`` fp32 is
+    measurably off it."""
+    from clap2diffusion_tpu.models.condition.adapter import AudioAdapter as JAdapter
+    from clap2diffusion_tpu.models.condition.hierarchical import (
+        HierarchicalAudioEncoder as JHier,
+    )
+    from clap2diffusion_tpu_torch.models.condition.adapter import AudioAdapter
+    from clap2diffusion_tpu_torch.models.condition.hierarchical import (
+        HierarchicalAudioEncoder,
+    )
+
+    cfg, pcfg, jparams = tiny
+    p16 = jax.tree.map(lambda v: jnp.asarray(v).astype(jnp.bfloat16), jparams[tower])
+    x = np.random.default_rng(5).normal(size=(3, cfg.condition.clap_dim)).astype(np.float32)
+    sd = bridge.from_flax({**jparams, tower: jax.tree.map(
+        lambda v: np.asarray(v.astype(jnp.float32)), p16)})[tower]
+    if tower == "hierarchical":
+        ref = JHier(cfg=cfg.condition).apply({"params": p16}, x, 0.7, return_all=True)[1]["routed"]
+        module = HierarchicalAudioEncoder(pcfg.condition)
+        run = lambda: module(torch.from_numpy(x), 0.7, return_all=True)[1]["routed"]  # noqa: E731
+    else:
+        ref = {"tokens": JAdapter(cfg=cfg.condition).apply({"params": p16}, x)}
+        module = AudioAdapter(pcfg.condition)
+        run = lambda: {"tokens": module(torch.from_numpy(x))}  # noqa: E731
+    module.load_state_dict(sd)
+    module.eval()
+    errs = {}
+    for pdt in (torch.bfloat16, torch.float32):
+        for sub in module.modules():
+            if hasattr(sub, "param_dtype"):
+                sub.param_dtype = pdt
+        with torch.no_grad():
+            out = run()
+        errs[pdt] = max(float(np.abs(out[k].numpy() - np.asarray(ref[k], np.float32)).max()
+                              / np.abs(np.asarray(ref[k], np.float32)).max()) for k in ref)
+    assert errs[torch.bfloat16] <= 1e-5 and errs[torch.float32] > 1e-4, errs
+
+
 def test_load_pipeline_refusals(tiny, tmp_path, monkeypatch):
     _, pcfg, _ = tiny
     params = P.init_params(pcfg, seed=0, device="cpu")
@@ -430,9 +510,16 @@ def test_load_pipeline_refusals(tiny, tmp_path, monkeypatch):
         P.load_pipeline(wide, path, device="cpu")
     with pytest.raises(ValueError, match="not a pipeline checkpoint"):
         P.load_pipeline(pcfg, str(tmp_path), device="cpu")
+    # the int8 wire loads (tests/test_torch_wire.py holds it against JAX);
+    # no leaf of the tiny config reaches MIN_WIRE_QUANT_SIZE, so it gives
+    # the plain load's weights
+    plain = P.load_pipeline(pcfg, path, device="cpu").params
     monkeypatch.setenv("C2D_INT8_WIRE", "1")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        P.load_pipeline(pcfg, path, device="cpu")
+    wired = P.load_pipeline(pcfg, path, device="cpu").params
+    assert sorted(wired) == sorted(plain)
+    for tower, sd in plain.items():
+        for k, t in sd.items():
+            assert torch.equal(wired[tower][k], t), (tower, k)
 
 
 def test_cached_init_params_hits_and_misses(tiny, tmp_path, monkeypatch):

@@ -6,8 +6,9 @@ against the JAX XLA Winograd, value and gradient; the plain version of the
 Winograd kernel (``ops/winograd_pallas.py``; the kernel is CUDA and runs
 only on the card, where ``chip_smoke.py`` phase 2d holds it against this
 version) against the JAX Pallas kernel in interpret mode; the tiny UNet
-under ``C2D_WINOGRAD=1`` against the JAX UNet under the same flag. The
-UNet and ``run_stage`` refuse ``C2D_INT8=1``, whose W8A8 path is not ported.
+under ``C2D_WINOGRAD=1`` against the JAX UNet under the same flag.
+``run_stage`` refuses ``C2D_INT8=1`` (serve only, as in JAX); the W8A8
+path itself is held in ``tests/test_torch_quant.py``.
 """
 
 import jax
@@ -175,17 +176,6 @@ def test_unet_3x3_convs_sit_where_jax_has_conv3x3_and_convert_reads_them(tiny):
     sd = {k: v.numpy() for k, v in pu.state_dict().items()}
     ref = {k: v for k, v in params["unet"].items() if not k.startswith("audio_inject_")}
     _same_tree(convert_sd_unet(sd, cfg.diffusion.unet), ref)
-
-
-def test_unet_refuses_int8(tiny, monkeypatch):
-    from clap2diffusion_tpu_torch.models.unet import UNet2DCondition
-
-    cfg, pcfg, params = tiny
-    pu = load(UNet2DCondition(pcfg.diffusion.unet), convert.unet_from_flax(params["unet"]))
-    sample, t, ehs, _ = _unet_inputs(cfg, np.random.default_rng(8))
-    monkeypatch.setenv("C2D_INT8", "1")
-    with pytest.raises(NotImplementedError, match="ops/quant.py.*ROADMAP"):
-        pu(to_torch(sample), torch.from_numpy(t), to_torch(ehs), None)
 
 
 def test_run_stage_refuses_int8(tiny, monkeypatch):
