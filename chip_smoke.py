@@ -199,12 +199,30 @@ Phases (each raises on failure, so the exit code is non-zero):
      the same micro-steps with the cache (time, launches, the first loss
      within CACHE_LOSS_TOL); then ``run_lifecycle --scale 0.001
      --skip-eval`` into a temporary root, its wall time by phase.
+  8a. The tools' shapes in this process, on phase 3's pipeline: ``generate``
+     at batches 1, 2, 4, 8 and 16 (the coalescer's padded groups and the
+     breakdown's batches: the UNet at CFG batch 2-32, the VAE decode at
+     1-16), the CLAP encode to the hierarchical tokens at 1, 8 and 16, and
+     the UNet at 32x32 latents (config 2), BENCH_SHAPE_STEPS steps each (the
+     shapes do not depend on the count); each kernel checked (untimed)
+     against its plain version at every shape no earlier phase checked.
+  8. The measurement tools, each run as a user runs it (``python -m
+     clap2diffusion_tpu_torch.tools.<name>``, a process of its own, its
+     defaults): ``bench`` (its last line has exactly the JAX bench's keys
+     and metric string and ``vs_baseline == round(2.0 / value, 3)``; its
+     profiled request launches phase 3's 751 / 2,279 / 801; its wall p50 is
+     logged beside phase 3's), ``bench_breakdown`` (every component at
+     batches 1, 8 and 16 timed and finite), ``bench_serving`` (8 clients,
+     pipelined then coalesced: as many 512x512 PNGs as requests, no group
+     above the max batch, the same bits in the warm-up and the timed round)
+     and ``bench_train`` (stage 1: finite losses, the last chunk's mean
+     below the first's).
 
 Timing: CUDA events around repeated launches after a warm-up (inputs stay
 in L2 where they fit, as they do on the path, where the producer just wrote
 them): ``*_ms`` back to back from Python, so at small shapes the host's cost
-per call; ``*device_ms`` (phases 2 and 2b) from a CUDA graph of 20 calls
-(``utils/timing.py``), the device's. Bounds use the H100 SXM data-sheet
+per call; ``*device_ms`` (phases 2, 2b, 2c and 2d) from a CUDA graph of 20
+calls (``utils/timing.py``), the device's. Bounds use the H100 SXM data-sheet
 rates: 989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32, 3.35 TB/s HBM3. The line
 before the last two is the ``kernels`` JSON: the forward, packed-forward and
 GroupNorm times are per image (sum over the serving path's calls of one
@@ -406,6 +424,22 @@ def bound_ms(flops, nbytes, dtype):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
+# the plain forward's fp32 logits at most this big in one piece (CFG batch 8
+# at 4096 tokens, phase 3e's); larger batches are compared in slices of it
+PLAIN_LOGITS_BYTES = 1 << 32
+
+
+def plain_flash(q, k, v, scale):
+    """``fa.plain_flash_attention``, in slices of the batch where its fp32
+    logits would pass PLAIN_LOGITS_BYTES (CFG batch 16 and 32): each (batch,
+    head) is its own softmax, so the slices give the same values."""
+    rows = max(1, PLAIN_LOGITS_BYTES // (q.shape[1] * q.shape[2] * k.shape[2] * 4))
+    if rows >= q.shape[0]:
+        return fa.plain_flash_attention(q, k, v, scale)
+    return torch.cat([fa.plain_flash_attention(q[i:i + rows], k[i:i + rows], v[i:i + rows],
+                                               scale) for i in range(0, q.shape[0], rows)])
+
+
 def flash_case(qs, ks, dtype, gen, timed=True):
     q = torch.randn(qs, device="cuda", generator=gen).to(dtype)
     k = torch.randn(ks, device="cuda", generator=gen).to(dtype)
@@ -422,7 +456,7 @@ def flash_case(qs, ks, dtype, gen, timed=True):
     torch.cuda.synchronize()
     if not torch.equal(fa.flash_attention(q, k, v, scale), got):
         raise AssertionError(f"{name}: two identical launches differ")
-    err = check(name, got, fa.plain_flash_attention(q, k, v, scale), dtype)
+    err = check(name, got, plain_flash(q, k, v, scale), dtype)
     # the UNet's layout: heads of a [B, S, H*D] projection, read through strides
     strided = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
     if not torch.equal(fa.flash_attention(*strided, scale), got):
@@ -676,12 +710,13 @@ def packed_case(b, s, h, d, dtype, gen, timed=True):
     if timed:
         qh, kh, vh = heads(q), heads(k), heads(v)
         bms, by = bound_ms(4 * b * h * s * s * d, 4 * b * s * h * d * q.element_size(), dtype)
+        kernel = lambda: fa.packed_flash_nhd(q, k, v, h, pack, scale)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)  # noqa: E731
         row.update({
-            "kernel_ms": time_ms(lambda: fa.packed_flash_nhd(q, k, v, h, pack, scale)),
+            "kernel_ms": time_ms(kernel), "device_ms": graph_ms(kernel),
             "plain_ms": time_ms(lambda: fa.plain_packed_flash_attention(qh, kh, vh, scale)),
             "per_head_ms": time_ms(lambda: fa.flash_attention_fwd(qh, kh, vh, scale)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                                         scale=scale)),
+            "library_ms": time_ms(library), "library_device_ms": graph_ms(library),
             "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by})
     log(row)
     return row
@@ -732,12 +767,14 @@ def wino_case(x_shape, cout, dtype, gen, timed=True):
         b, h, wd, _ = x_shape
         nbytes = (b * h * wd * cin + 9 * cin * cout + b * h * wd * cout) * x.element_size()
         bms, by = bound_ms(8 * b * h * wd * cin * cout, nbytes, dtype)
+        kernel = lambda: wp.winograd_conv_fwd(x, u, bias)  # noqa: E731
+        library = lambda: F.conv2d(nchw, w_oihw, bias, padding=1)  # noqa: E731
         row.update({
-            "kernel_ms": time_ms(lambda: wp.winograd_conv_fwd(x, u, bias)),
+            "kernel_ms": time_ms(kernel), "device_ms": graph_ms(kernel),
             "entry_ms": time_ms(lambda: wp.conv3x3_winograd_pallas(x, w, bias)),
             "filter_ms": time_ms(lambda: wp.winograd_filter(w, dtype)),
             "plain_ms": time_ms(lambda: wp.plain_conv3x3_winograd_pallas(x, w, bias)),
-            "library_ms": time_ms(lambda: F.conv2d(nchw, w_oihw, bias, padding=1)),
+            "library_ms": time_ms(library), "library_device_ms": graph_ms(library),
             "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by})
     log(row)
     return row
@@ -2451,6 +2488,136 @@ def tools_phase(cfg, params, data_root, out_dir, card):
     return out
 
 
+# Phase 8a: the shapes the measurement tools give the kernels, in this process
+BENCH_SHAPE_BATCHES = (1, 2, 4, 8, 16)  # the coalescer's padded groups, the breakdown's batches
+CLAP_ENCODE_BATCHES = (1, 8, 16)  # bench_breakdown's clap_encode
+BENCH_SHAPE_STEPS = 2
+
+
+def bench_shapes_phase(pipe, unet_args, wav, text, uncond, checked):
+    """Phase 8a: drive phase 3's pipeline at the shapes phase 8's tools
+    run (``generate`` at each of BENCH_SHAPE_BATCHES, the CLAP encode at
+    CLAP_ENCODE_BATCHES, the UNet at 32x32 latents) and check each kernel
+    against its plain version at every shape no earlier phase checked; the
+    worst errors."""
+    cfg = pipe.cfg
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in BENCH_SHAPE_BATCHES:
+        img = pipe.generate(waveform=wav, text_ids=np.repeat(text, b, 0),
+                            uncond_ids=np.repeat(uncond, b, 0), seeds=list(range(b)), batch=b,
+                            num_steps=BENCH_SHAPE_STEPS, guidance_scale=7.5)
+        if img.shape[0] != b or not np.isfinite(img).all():
+            raise AssertionError(f"phase 8a: generate(batch={b}) gave {img.shape}")
+    with torch.inference_mode():
+        wav2d = np.asarray(wav, np.float32).reshape(1, -1)
+        for b in CLAP_ENCODE_BATCHES:
+            pipe._condition(pipe.encode_audio(np.repeat(wav2d, b, 0)), "hierarchical",
+                            cfg.condition.audio_norm_target, 0.5)
+        x, t, ctx, routed = unet_args
+        lat = 256 // 8
+        pipe.unet(torch.ones(x.shape[0], lat, lat, x.shape[-1], dtype=x.dtype, device=x.device),
+                  t, ctx, routed)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    seen = {fn.__name__: dict(fn.shapes) for fn in (fa.flash_attention, gn.group_norm_silu,
+                                                    gn.group_norm)}
+    t0 = time.perf_counter()
+    errs, fresh = check_new_shapes(seen, checked, torch.Generator(device="cuda").manual_seed(8))
+    log({"phase": "bench_shapes", "batches": BENCH_SHAPE_BATCHES,
+         "clap_encode_batches": CLAP_ENCODE_BATCHES, "steps": BENCH_SHAPE_STEPS,
+         "drive_s": drive_s, "check_s": time.perf_counter() - t0,
+         "shapes": {k: len(v) for k, v in seen.items()},
+         "shapes_first_checked_here": fresh, "errs": errs})
+    torch.cuda.empty_cache()
+    return errs
+
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+TOOL_TIMEOUT_S = {"bench": 600, "bench_breakdown": 900, "bench_serving": 600, "bench_train": 300}
+HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline"]
+HEADLINE_METRIC = "p50 audio+text->512px image latency, 50-step DDIM+CFG, 1 chip"
+SERVING_MAX_BATCH = 8  # bench_serving's default --max-batch
+
+
+def run_tool(name):
+    """``python -m clap2diffusion_tpu_torch.tools.<name>`` from the
+    repository root, as a user runs it: (stdout, the JSON lines of stdout
+    and of stderr, seconds). A tool that fails fails the phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"clap2diffusion_tpu_torch.tools.{name}"],
+                          cwd=REPO_ROOT, capture_output=True, text=True,
+                          timeout=TOOL_TIMEOUT_S[name])
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"tools.{name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+
+    def lines(text):
+        return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+    return proc.stdout, lines(proc.stdout), lines(proc.stderr), seconds
+
+
+def bench_tools_phase(p50):
+    """Phase 8: the port's four measurement tools on the card, each a
+    process of its own with its defaults (the bench's ``.cache/params``
+    weights are drawn by the first and read by the others)."""
+    # the headline bench: the JAX bench's last line, this run's launch counts
+    stdout, _, err, seconds = run_tool("bench")
+    head = json.loads(stdout.strip().splitlines()[-1])
+    if list(head) != HEADLINE_KEYS or head["metric"] != HEADLINE_METRIC \
+            or head["unit"] != "s/image" or head["vs_baseline"] != round(2.0 / head["value"], 3):
+        raise AssertionError(f"bench: headline {head}")
+    diag = [line for line in err if line.get("diag") == "bench"][-1]
+    got = tuple(diag["launches"][k] for k in ("flash_attention", "group_norm_silu", "group_norm"))
+    if got != REQUEST_LAUNCHES[50]:
+        raise AssertionError(f"bench: a request launched (flash, GN+SiLU, GN) {got}, "
+                             f"want {REQUEST_LAUNCHES[50]}")
+    if not diag["device_busy_s"] or diag["device_busy_s"] <= 0:
+        raise AssertionError(f"bench: device busy {diag['device_busy_s']}")
+    log({"phase": "bench", "seconds": seconds, "headline": head,
+         "bench_wall_p50_s": diag["wall_p50_s"], "phase3_p50_s": p50,
+         "bench_over_phase3": diag["wall_p50_s"] / p50,
+         **{k: diag[k] for k in ("times", "device_busy_s", "idle_share", "device_events",
+                                 "by_category_s", "launches", "build_s", "params_cache_hit",
+                                 "warmup_s", "ttfi_s", "card", "power_limit")},
+         **{k: diag[k] for k in ("load_s", "init_s") if k in diag}})
+
+    # time by component and batch: configurations 1-4 on the card
+    _, rows, _, seconds = run_tool("bench_breakdown")
+    for r in rows:
+        timed = [r["p50_ms"], r["min_ms"]] + ([r["device_ms"]] if "device_ms" in r else [])
+        if not all(np.isfinite(t) and t > 0 for t in timed):
+            raise AssertionError(f"bench_breakdown: {r}")
+    names = {(r["component"], r["batch"]) for r in rows}
+    want = {(c, b) for b in (1, 8, 16) for c in ("clap_encode", "unet_step_cfg",
+                                                  "vae_decode_512", f"full_50step_b{b}")}
+    if names != want | {("unet_step_256", 1)}:
+        raise AssertionError(f"bench_breakdown: components {sorted(names)}")
+    log({"phase": "bench_breakdown", "seconds": seconds, "rows": rows})
+
+    # concurrent serving: pipelined against coalesced
+    _, lines, _, seconds = run_tool("bench_serving")
+    modes = {line["mode"]: line for line in lines if "mode" in line}
+    if set(modes) != {"pipelined", "coalesced"} or not any("speedup" in line for line in lines):
+        raise AssertionError(f"bench_serving: lines {lines}")
+    for mode, line in modes.items():
+        if line["served"] != line["requested"] or line["png_shapes"] != [[512, 512, 3]] \
+                or not line["repeat_equal"] or line["max_coalesced_batch"] > SERVING_MAX_BATCH:
+            raise AssertionError(f"bench_serving {mode}: {line}")
+    if modes["pipelined"]["distinct_images"] != 1:
+        raise AssertionError(f"bench_serving: equal batch-1 requests gave "
+                             f"{modes['pipelined']['distinct_images']} images")
+    log({"phase": "bench_serving", "seconds": seconds, "lines": lines})
+
+    # configuration 5: stage-1 training
+    _, lines, _, seconds = run_tool("bench_train")
+    line = lines[-1]
+    if not line["finite"] or not line["last_chunk_mean_loss"] < line["first_chunk_mean_loss"]:
+        raise AssertionError(f"bench_train: {line}")
+    log({"phase": "bench_train", **line, "seconds": seconds, "timed_chunks_s": line["seconds"]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -2953,6 +3120,14 @@ def main() -> int:
     tools = tools_phase(train_cfg, train_params, data_root, tmp, card)
     shutil.rmtree(tmp, ignore_errors=True)
 
+    # -- 8a. the tools' shapes, checked in this process -------------------------------
+    for kind, err in bench_shapes_phase(pipe, unet_args, wav, text, uncond, checked).items():
+        errs[kind] = max(errs[kind], err)
+
+    # -- 8. the measurement tools, each as a user runs it ---------------------------
+    torch.cuda.empty_cache()  # the tools' processes share the card with this one
+    bench_tools_phase(p50)
+
     # -- the kernels line -----------------------------------------------------
     def per_image(kind, key):
         """Sum over one image's calls (the main path's counts / requests)."""
@@ -3058,6 +3233,7 @@ def main() -> int:
         "ms": packed_sum("kernel_ms"), "plain_ms": packed_sum("plain_ms"),
         "bound_ms": packed_sum("bound_ms"), "bound_by": max(share, key=share.get),
         "library_ms": packed_sum("library_ms"), "per_head_ms": packed_sum("per_head_ms"),
+        "device_ms": packed_sum("device_ms"), "library_device_ms": packed_sum("library_device_ms"),
         "per": "image, bf16, C2D_PACKED_FLASH=1", "training_launches": packed_train_launches,
     })
     # the Winograd kernel per UNet forward over the eligible census shapes, bf16;
@@ -3080,11 +3256,13 @@ def main() -> int:
         "ms": wino_sum("kernel_ms"), "plain_ms": wino_sum("plain_ms"),
         "bound_ms": wino_sum("bound_ms"), "bound_by": max(share, key=share.get),
         "library_ms": wino_sum("library_ms"), "entry_ms": wino_sum("entry_ms"),
+        "device_ms": wino_sum("device_ms"), "library_device_ms": wino_sum("library_device_ms"),
         "filter_ms": wino_sum("filter_ms"),
         "per": "UNet forward (batch 2, bf16), eligible Conv3x3 shapes",
         "bench": [{k: rows_w[(xs, co, dt)][k] for k in
-                   ("x", "cout", "dtype", "blocks", "kernel_ms", "entry_ms", "filter_ms",
-                    "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                   ("x", "cout", "dtype", "blocks", "kernel_ms", "device_ms", "entry_ms",
+                    "filter_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                    "bound_by")}
                   for xs, co in BENCH_WINO_SHAPES for dt in ("torch.bfloat16", "torch.float32")],
     })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,13 +22,13 @@ import argparse
 import gzip
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
 import torch
 
 from clap2diffusion_tpu_torch.ops.cuda_build import build_dir
+from clap2diffusion_tpu_torch.tools import bench_common
 
 CATEGORIES = (
     ("flash_attention", ("flash_fwd",)),
@@ -46,6 +46,41 @@ def _category(name: str) -> str:
         if any(k.lower() in low for k in keys):
             return cat
     return "other"
+
+
+def summarise_trace(events) -> dict:
+    """The device events of a chrome trace's ``traceEvents`` (kernels,
+    memcpy, memset; durations in µs) summed by ``CATEGORIES``: launches,
+    busy seconds, seconds and launches by category, the top kernels."""
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_cat, calls, kernels = {}, {}, {}
+    for e in device:
+        cat = _category(e["name"])
+        by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"] / 1e6
+        calls[cat] = calls.get(cat, 0) + 1
+        kernels[e["name"][:90]] = kernels.get(e["name"][:90], 0.0) + e["dur"] / 1e6
+    return {"launches": len(device), "device_kernel_s": sum(by_cat.values()),
+            "by_category_s": by_cat, "launches_by_category": calls,
+            "top_kernels": sorted(kernels.items(), key=lambda kv: -kv[1])[:12]}
+
+
+def device_summary(prof, out_dir=None) -> dict:
+    """``summarise_trace`` of a finished ``torch.profiler`` run, read from
+    its chrome trace; with ``out_dir`` the trace is kept there (gzip),
+    without, it passes through ``build/trace/`` and is deleted."""
+    out = out_dir or os.path.join(os.path.dirname(build_dir()), "trace")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"trace_request_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            trace = json.load(f)
+        if out_dir:
+            with open(path, "rb") as f, gzip.open(path + ".gz", "wb") as g:
+                g.write(f.read())
+    finally:
+        os.remove(path)
+    return summarise_trace(trace["traceEvents"] if isinstance(trace, dict) else trace)
 
 
 def _timed(fn):
@@ -66,9 +101,7 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = bench_common.card(torch.device("cuda"))
     cfg = Config()
     pipe = AudioToImagePipeline(cfg, seed=0, dtype=torch.bfloat16)
     tok = CLIPTokenizer(max_length=cfg.diffusion.clip_text.max_length)
@@ -105,33 +138,15 @@ def main() -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(lambda: pipe.generate(**kw))
-    out_dir = args.out or os.path.join(os.path.dirname(build_dir()), "trace")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "trace_request.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    by_cat, calls, kernels = {}, {}, {}
-    for e in device:
-        cat = _category(e["name"])
-        by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"] / 1e6
-        calls[cat] = calls.get(cat, 0) + 1
-        kernels[e["name"][:90]] = kernels.get(e["name"][:90], 0.0) + e["dur"] / 1e6
-    busy = sum(by_cat.values())
+    summary = device_summary(prof, args.out)
     print(json.dumps({
-        "launches": len(device), "device_kernel_s": busy,
+        "launches": summary["launches"], "device_kernel_s": summary["device_kernel_s"],
         "request_s_unprofiled": stages["request_s"],
-        "device_idle_share": 1 - busy / stages["request_s"],
-        "profile_wall_s": wall, "by_category_s": by_cat, "launches_by_category": calls,
-        "top_kernels": sorted(kernels.items(), key=lambda kv: -kv[1])[:12],
-        "card": card,
+        "device_idle_share": 1 - summary["device_kernel_s"] / stages["request_s"],
+        "profile_wall_s": wall, "by_category_s": summary["by_category_s"],
+        "launches_by_category": summary["launches_by_category"],
+        "top_kernels": summary["top_kernels"], "card": card,
     }), flush=True)
-    if args.out:
-        with open(path, "rb") as f, gzip.open(path + ".gz", "wb") as g:
-            g.write(f.read())
-    os.remove(path)
 
 
 if __name__ == "__main__":
