@@ -124,6 +124,18 @@ Phases (each raises on failure, so the exit code is non-zero):
      requests' launches, each phase's time logged; each metric tower on the
      card against its fp32 CPU output on 2 inputs (TOWER_TOL); the
      ``evaluate`` CLI once on the same data from a checkpoint.
+  3g. Audio files at the rates users have: a 10 s 44.1 kHz PCM16 WAV, a
+     10 s 44.1 kHz FLAC, a 60 s 44.1 kHz float WAV (cropped), a 10 s 22.05
+     kHz WAV and a 10 s 44.1 kHz mp3 where libmp3lame is present, through
+     ``load_audio`` (host seconds each); the first outputs of each (those
+     whose filter lies in the first 0.1 s) equal, at tolerance 0, the
+     zero-stuffed float64 convolution the resampler replaced, inlined here.
+     Then the 44.1 kHz WAV served in this process (``generate(waveform=
+     pipe.load_audio(file))``), through ``apps.main infer --audio`` in a
+     process of its own on phase 3d's checkpoint (its launch counts read
+     at its exit), and as a base64 upload to the HTTP server: exactly 751
+     / 2,279 / 801 launches each, both served PNGs bit-equal to the
+     in-process image.
   4. Reference check: a small configuration (flash and GroupNorm kernels
      on) in fp32 on the card against the same pipeline on the CPU (plain
      versions), under the frozen-golden bounds of tests/test_image_golden.py.
@@ -154,9 +166,10 @@ Phases (each raises on failure, so the exit code is non-zero):
   6. Small training reference: one stage-2 micro-step of the small
      configuration in fp32 on the card (TF32 off, kernels on) against the
      same step on the CPU: loss and the gradient of every trainable leaf.
-  6a. Prepare and encode: synthetic AudioCaps sources (WAVs at 44.1 and
-     48 kHz, a FLAC from tests/flac_fixture.py, an mp3 when the system has
-     libmp3lame to write one) and a CSV through ``apps.main prepare --csv``,
+  6a. Prepare and encode: synthetic AudioCaps sources of 10 s (WAVs at 44.1
+     and 48 kHz, FLACs from tests/flac_fixture.py at both, an mp3 when the
+     system has libmp3lame to write one; each file's ``process_audio_file``
+     seconds) and a CSV through ``apps.main prepare --csv``,
      then ``prepare --encode-latents`` on 8 PNG frames at 512² (phase 3's
      and 3c's images), batch 8, TF32 off: the native audio library's path and build seconds, the loader
      each source took, its decode time against the numpy path; exactly one
@@ -214,9 +227,12 @@ Phases (each raises on failure, so the exit code is non-zero):
      logged beside phase 3's), ``bench_breakdown`` (every component at
      batches 1, 8 and 16 timed and finite), ``bench_serving`` (8 clients,
      pipelined then coalesced: as many 512x512 PNGs as requests, no group
-     above the max batch, the same bits in the warm-up and the timed round)
-     and ``bench_train`` (stage 1: finite losses, the last chunk's mean
-     below the first's).
+     above the max batch, the same bits in the warm-up and the timed
+     round), ``bench_train`` (stage 1: finite losses, the last chunk's mean
+     below the first's) and ``eval_memory`` (the metric towers at
+     ``run_evaluation``'s batch of 16 and one 512² request: weight, input,
+     resident and peak bytes, the peak at least the resident bytes, the
+     resident at least the weights).
 
 Timing: CUDA events around repeated launches after a warm-up (inputs stay
 in L2 where they fit, as they do on the path, where the producer just wrote
@@ -1162,12 +1178,9 @@ def prepare_phase(frames, checked, card):
             return (0.4 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.normal(size=t.size)
                     ).astype(np.float32)
 
-        # 44.1 kHz sources are short: prepare resamples with the numpy
-        # polyphase filter, as the JAX package does, at ~1e10 MACs a second
-        # of audio
-        sources = {"wav48": ("wav", 48_000, 10.0), "wav44": ("wav", 44_100, 0.2),
-                   "flac48": ("flac", 48_000, 10.0), "flac44": ("flac", 44_100, 0.2),
-                   "mp3": ("mp3", 44_100, 0.2)}
+        sources = {"wav48": ("wav", 48_000, 10.0), "wav44": ("wav", 44_100, 10.0),
+                   "flac48": ("flac", 48_000, 10.0), "flac44": ("flac", 44_100, 10.0),
+                   "mp3": ("mp3", 44_100, 10.0)}
         written = {}
         for sid, (kind, sr, seconds) in sources.items():
             x = tone(sr, seconds)
@@ -1199,6 +1212,10 @@ def prepare_phase(frames, checked, card):
                 t0 = time.perf_counter()
                 NA._fallback_one(path, 48_000, 480_000, False)
                 decode[sid]["numpy_s"] = time.perf_counter() - t0
+            # prepare's step for one file: decode, resample, crop, write
+            t0 = time.perf_counter()
+            PPrep.process_audio_file(path, os.path.join(tmp, f"{sid}_one.wav"))
+            decode[sid]["process_audio_file_s"] = time.perf_counter() - t0
         with open(os.path.join(tmp, "a.csv"), "w") as f:
             f.write("youtube_id,caption,start_time\n")
             for sid in sources:
@@ -1623,7 +1640,7 @@ def checkpoint_phase(pipe, wav, text, uncond, first_img, seeds_img, card, keep):
     port's converter tool, ``apps.main infer --checkpoint`` and the HTTP
     server over ``load_pipeline``, each image held against phase 3's or
     3c's bits, with exact launch counts. The converted checkpoint is moved
-    to ``keep``'s ``pipeline`` (phase 7b loads it)."""
+    to ``keep``'s ``pipeline`` (phases 3g and 7b load it)."""
     tmp = tempfile.mkdtemp(prefix="c2d_ckpt_")
     verdicts, rows = {}, {}
     try:
@@ -1783,6 +1800,189 @@ def export_phase(cfg, ckdir, trained_hier, wav, card):
         shutil.rmtree(tmp, ignore_errors=True)
     log({"phase": "export_way_back", "card": card, "export_s": export_s,
          "tensors": len(flat), "infer_stage_ema_s": wall, "launches": got})
+
+
+# Phase 3g: audio files at the rates users have, through load_audio, the CLI
+# and the server. name -> (container, rate, seconds); the 60 s float WAV is
+# cropped to the CLAP window, the mp3 is written where libmp3lame is present
+AUDIO_FILES = {"wav44": ("wav", 44_100, 10.0), "flac44": ("flac", 44_100, 10.0),
+               "float44_60s": ("float_wav", 44_100, 60.0), "wav22": ("wav", 22_050, 10.0),
+               "mp3_44": ("mp3", 44_100, 10.0)}
+# the zero-stuffed formula costs len*up*(32*max(up, down)+1) products (3.6e9
+# for 0.1 s at 44.1 kHz), so it sees the first OLD_WINDOW_S of each file
+OLD_WINDOW_S = 0.1
+CLI_TIMEOUT_S = 600
+# ``python -m clap2diffusion_tpu_torch.apps.main`` (runpy's -m) with its
+# argv as given; at exit, one stdout line: the process's launch counts, the
+# seconds of its imports and of ``main``, and within ``main`` the seconds of
+# the kernels' builds (found built: a hash check), ``load_pipeline``,
+# ``load_audio`` and ``generate``
+CLI_COUNTED = """
+import json, runpy, time
+t0 = time.perf_counter()
+from clap2diffusion_tpu_torch.diffusion import pipeline as P
+from clap2diffusion_tpu_torch.ops import cuda_build, flash_attention as fa, groupnorm as gn
+spans = {"imports_s": time.perf_counter() - t0}
+
+def timed(name, fn):
+    def call(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t
+    return call
+
+cuda_build.build = timed("kernel_build_s", cuda_build.build)
+P.load_pipeline = timed("load_pipeline_s", P.load_pipeline)
+P.AudioToImagePipeline.load_audio = timed("load_audio_s", P.AudioToImagePipeline.load_audio)
+P.AudioToImagePipeline.generate = timed("generate_s", P.AudioToImagePipeline.generate)
+t0 = time.perf_counter()
+try:
+    runpy.run_module("clap2diffusion_tpu_torch.apps.main", run_name="__main__", alter_sys=True)
+finally:
+    spans["main_s"] = time.perf_counter() - t0
+    print(json.dumps({"launches": [fa.flash_attention.launches, gn.group_norm_silu.launches,
+                                   gn.group_norm.launches], **spans}), flush=True)
+"""
+
+
+def zero_stuffed_resample(x, sr, target):
+    """The resampler the port had, as the JAX package has it: zero-stuff by
+    up, convolve the whole stuffed signal with the kaiser-windowed sinc in
+    float64, keep every down-th sample, cast once. Also (up, down, half)."""
+    from fractions import Fraction
+
+    frac = Fraction(target, sr)
+    up, down = frac.numerator, frac.denominator
+    cutoff = min(1.0 / up, 1.0 / down)
+    half = 16 * max(up, down)
+    n = np.arange(-half, half + 1, dtype=np.float64)
+    h = cutoff * np.sinc(cutoff * n) * np.kaiser(len(n), 8.555) * up
+    xu = np.zeros(len(x) * up, dtype=np.float64)
+    xu[::up] = np.asarray(x, np.float64)
+    y = np.convolve(xu, h, mode="full")[half:half + len(xu):down]
+    return y[:-(-len(x) * up // down)].astype(np.float32), up, down, half
+
+
+def audio_files_phase(pipe, text, uncond, ck, checked, p50, card):
+    """Phase 3g: sources at 44.1 and 22.05 kHz through ``load_audio`` (host
+    seconds; the head of each against the zero-stuffed formula at tolerance
+    0), then the 10 s 44.1 kHz WAV served through ``apps.main infer`` in a
+    process of its own on the checkpoint ``ck`` and through the HTTP server,
+    each image held bit for bit against ``generate(waveform=
+    pipe.load_audio(file))`` in this process, with exact launches."""
+    from clap2diffusion_tpu_torch.utils import audio_io as AIO
+
+    fe = pipe.cfg.clap.frontend
+    write_flac = test_fixture("flac_fixture").write_flac
+    write_mp3 = test_fixture("mp3_fixture").write_mp3
+    tmp = tempfile.mkdtemp(prefix="c2d_audio_")
+    verdicts, files, served = {}, {}, []
+    try:
+        for i, (name, (kind, sr, seconds)) in enumerate(AUDIO_FILES.items()):
+            x = waveform(seconds, sr, seed=30 + i)
+            path = os.path.join(tmp, f"{name}.{'wav' if kind == 'float_wav' else kind}")
+            if kind == "wav":
+                AIO.write_wav(path, x, sr)
+            elif kind == "float_wav":
+                write_float_wav(path, x, sr)
+            elif kind == "flac":
+                write_flac(path, (x * 32767).astype(np.int16), sr, kind="lpc2")
+            elif not write_mp3(path, x, sr):
+                files[name] = {"skipped": "no libmp3lame to write an mp3"}
+                continue
+            t0 = time.perf_counter()
+            got = pipe.load_audio(path)
+            load_s = time.perf_counter() - t0
+            if got.shape != (fe.num_samples,) or got.dtype != np.float32 or \
+                    not np.isfinite(got).all():
+                raise AssertionError(f"load_audio({name}): {got.shape} {got.dtype}")
+            # the same peak-normalised mono samples through the old formula
+            wav, file_sr = AIO.read_audio(path)
+            mono = AIO.peak_normalize(wav)
+            mono = mono.mean(axis=0) if mono.ndim == 2 else mono
+            window = int(OLD_WINDOW_S * file_sr)
+            t0 = time.perf_counter()
+            old, up, down, half = zero_stuffed_resample(mono[:window], file_sr, fe.sample_rate)
+            old_s = time.perf_counter() - t0
+            inside = -((half - window * up) // down)  # outputs whose filter ends in the window
+            diff = float(np.abs(got[:inside] - old[:inside]).max())
+            files[name] = {"container": kind, "rate": file_sr, "audio_s": seconds,
+                           "bytes": os.path.getsize(path), "load_audio_s": load_s,
+                           "old_formula_window_s": old_s, "outputs_compared": inside,
+                           "max_abs_diff": diff}
+            if diff != 0.0:
+                raise AssertionError(f"load_audio({name}) differs from the zero-stuffed "
+                                     f"formula by {diff} over its first {inside} outputs")
+
+        wav_path = os.path.join(tmp, "wav44.wav")
+        kwargs = dict(text_ids=text, uncond_ids=uncond, model_type="hierarchical",
+                      num_steps=50, guidance_scale=7.5, seed=0)
+        reset_counts()
+        torch.cuda.synchronize()
+        before, t0 = counts(), time.perf_counter()
+        ref = pipe.generate(waveform=pipe.load_audio(wav_path), **kwargs)
+        in_process_s = time.perf_counter() - t0
+        got = launches_since(before)
+        size = pipe.cfg.diffusion.image_size
+        if got != REQUEST_LAUNCHES[50] or ref.shape != (1, size, size, 3) or ref.std() == 0:
+            raise AssertionError(f"phase 3g in-process request: launches {got}, "
+                                 f"image {ref.shape} std {ref.std()}")
+        served.append({"request": "in_process", "wall_s": in_process_s, "launches": got})
+
+        # the CLI as a user runs it: a process of its own on the card
+        png = os.path.join(tmp, "cli.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_COUNTED, "infer", "--checkpoint", ck, "--dtype",
+             "bfloat16", "--audio", wav_path, "--text", TEXT, "--steps", "50", "--seed", "0",
+             "--output", png], cwd=REPO_ROOT, capture_output=True, text=True,
+            timeout=CLI_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"infer --audio exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        served.append({"request": "cli_infer", "process_s": cli_s, **line,
+                       "launches": tuple(line["launches"])})
+        if tuple(line["launches"]) != REQUEST_LAUNCHES[50]:
+            raise AssertionError(f"infer --audio: launches {line['launches']}, "
+                                 f"want {REQUEST_LAUNCHES[50]}")
+        with open(png, "rb") as f:
+            hold("cli_infer_vs_in_process", decode_png(f.read()), ref[0], verdicts)
+
+        # the server: the file's bytes as a base64 upload to /generate
+        t0 = time.perf_counter()
+        loaded = load_pipeline(pipe.cfg, ck, dtype=torch.bfloat16, device=pipe.device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        with open(wav_path, "rb") as f:
+            req = {"audio_b64": base64.b64encode(f.read()).decode(), "text": TEXT,
+                   "steps": 50, "cfg": 7.5, "seed": 0}
+        with running(InferenceService(pipe=loaded)) as port:
+            before = counts()
+            out, wall = http(port, "/generate", req)
+            got = launches_since(before)
+        served.append({"request": "server_generate", "wall_s": wall, "launches": got,
+                       "fetch_wait_s": out["info"]["fetch_wait_s"],
+                       "load_pipeline_s": load_s})
+        if got != REQUEST_LAUNCHES[50]:
+            raise AssertionError(f"phase 3g /generate: launches {got}, "
+                                 f"want {REQUEST_LAUNCHES[50]}")
+        hold("server_generate_vs_in_process", png_of(out["image_b64"]), ref[0], verdicts)
+        del loaded
+        torch.cuda.empty_cache()
+        seen = {fn.__name__: dict(fn.shapes)
+                for fn in (fa.flash_attention, gn.group_norm_silu, gn.group_norm)}
+        errs, fresh = check_new_shapes(seen, checked,
+                                       torch.Generator(device="cuda").manual_seed(14))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log({"phase": "audio_files", "card": card, "files": files, "served": served,
+         "phase3_p50_s": p50, "images": verdicts, "shapes_first_checked_here": fresh,
+         "errs": errs})
+    settle("phase 3g", verdicts)
+    return errs
 
 
 # Phase 3e: best-of-n. The candidates run as one batch of BEST_OF_N (CFG
@@ -2534,7 +2734,9 @@ def bench_shapes_phase(pipe, unet_args, wav, text, uncond, checked):
 
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
-TOOL_TIMEOUT_S = {"bench": 600, "bench_breakdown": 900, "bench_serving": 600, "bench_train": 300}
+TOOL_TIMEOUT_S = {"bench": 600, "bench_breakdown": 900, "bench_serving": 600, "bench_train": 300,
+                  "eval_memory": 300}
+EVAL_MEMORY_PROGRAMS = ["inception_v3", "clip_vision", "clap_audio", "clap_text", "request"]
 HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline"]
 HEADLINE_METRIC = "p50 audio+text->512px image latency, 50-step DDIM+CFG, 1 chip"
 SERVING_MAX_BATCH = 8  # bench_serving's default --max-batch
@@ -2559,9 +2761,10 @@ def run_tool(name):
 
 
 def bench_tools_phase(p50):
-    """Phase 8: the port's four measurement tools on the card, each a
+    """Phase 8: the port's five measurement tools on the card, each a
     process of its own with its defaults (the bench's ``.cache/params``
-    weights are drawn by the first and read by the others)."""
+    weights are drawn by the first and read by the next three;
+    ``eval_memory`` draws its own)."""
     # the headline bench: the JAX bench's last line, this run's launch counts
     stdout, _, err, seconds = run_tool("bench")
     head = json.loads(stdout.strip().splitlines()[-1])
@@ -2616,6 +2819,13 @@ def bench_tools_phase(p50):
     if not line["finite"] or not line["last_chunk_mean_loss"] < line["first_chunk_mean_loss"]:
         raise AssertionError(f"bench_train: {line}")
     log({"phase": "bench_train", **line, "seconds": seconds, "timed_chunks_s": line["seconds"]})
+
+    # device memory of the metric towers at run_evaluation's batch and of a request
+    _, rows, _, seconds = run_tool("eval_memory")
+    if [r["program"] for r in rows] != EVAL_MEMORY_PROGRAMS or not all(
+            r["peak_bytes"] >= r["resident_bytes"] >= r["param_bytes"] > 0 for r in rows):
+        raise AssertionError(f"eval_memory: rows {rows}")
+    log({"phase": "eval_memory", "seconds": seconds, "rows": rows})
 
 
 def main() -> int:
@@ -2959,7 +3169,7 @@ def main() -> int:
         errs[kind] = max(errs[kind], err)
 
     # -- 3d. checkpoint and entry points at full width ---------------------------
-    kept = tempfile.mkdtemp(prefix="c2d_kept_")  # phase 3d's checkpoint, for phase 7b
+    kept = tempfile.mkdtemp(prefix="c2d_kept_")  # phase 3d's checkpoint, for phases 3g and 7b
     checkpoint_phase(pipe, wav, text, uncond, first_img, gen_out["images"]["seeds"], card, kept)
 
     # -- 3e. best-of-n at full width ---------------------------------------------
@@ -2975,6 +3185,12 @@ def main() -> int:
     # that the later phases' peak memory compares with earlier runs'
     pipe.extra_params.clear()
     pipe._scorer = None
+    torch.cuda.empty_cache()
+
+    # -- 3g. audio files through load_audio, the CLI and the server ---------------
+    for kind, err in audio_files_phase(pipe, text, uncond, os.path.join(kept, "pipeline"),
+                                       checked, p50, card).items():
+        errs[kind] = max(errs[kind], err)
     torch.cuda.empty_cache()
 
     # -- 4. small reference: the kernels in fp32 on the card vs the CPU -------

@@ -53,9 +53,9 @@ def process_audio_file(in_path: str, out_path: str, target_sr: int = 48_000,
         peak = np.abs(wav).max()
         if peak > 0:
             wav = wav / peak
-        if sr != target_sr:
-            wav = resample_poly(wav, sr, target_sr)
         n = int(target_sr * duration_s)
+        if sr != target_sr:
+            wav = resample_poly(wav, sr, target_sr, keep=n)
         if len(wav) < n:
             wav = np.pad(wav, (0, n - len(wav)))
         write_wav(out_path, wav[:n], target_sr)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import functools
 import math
 from fractions import Fraction
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,11 +111,25 @@ def fit_to_length(x: np.ndarray, target: int) -> np.ndarray:
     return x
 
 
-def resample_poly(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+# outputs gathered at once: [chunk, taps] float64 products (~17 MB at 33 taps)
+RESAMPLE_CHUNK = 65_536
+
+
+def resample_poly(x: np.ndarray, orig_sr: int, target_sr: int,
+                  keep: Optional[int] = None) -> np.ndarray:
     """Polyphase resampling of 1-D float audio (kaiser-windowed sinc, beta
-    8.555); a copy of ``clap2diffusion_tpu/utils/audio_io.py::resample_poly``."""
+    8.555): the function of ``clap2diffusion_tpu/utils/audio_io.py::
+    resample_poly`` (the same filter, gain, delay and ``ceil(len*up/down)``
+    outputs), but only the first ``keep`` outputs (all when None) and only
+    the products with input samples. JAX's zero-stuffs the signal by ``up``
+    and convolves all of it; output m is
+
+        y[m] = sum_i x[i] * h[half + m*down - i*up],  0 <= half + m*down - i*up <= 2*half,
+
+    about 32*max(up, down)/up + 1 products (33 at 44.1 kHz). Summed in
+    float64 and cast to float32 once, as JAX's."""
     if orig_sr == target_sr:
-        return np.asarray(x, dtype=np.float32)
+        return np.asarray(x, dtype=np.float32)[:keep]
     frac = Fraction(target_sr, orig_sr)
     up, down = frac.numerator, frac.denominator
     x = np.asarray(x, dtype=np.float64)
@@ -123,22 +137,36 @@ def resample_poly(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     half = 16 * max(up, down)
     n = np.arange(-half, half + 1, dtype=np.float64)
     h = cutoff * np.sinc(cutoff * n) * np.kaiser(len(n), 8.555) * up
-    xu = np.zeros(len(x) * up, dtype=np.float64)
-    xu[::up] = x
-    y = np.convolve(xu, h, mode="full")
-    delay = (len(h) - 1) // 2
-    y = y[delay:delay + len(xu):down]
-    return y[:int(math.ceil(len(x) * up / down))].astype(np.float32)
+    n_out = int(math.ceil(len(x) * up / down))
+    if keep is not None:
+        n_out = min(n_out, keep)
+    # output m's first input is lo = ceil((m*down - half) / up), in
+    # [-half/up, len(x)]; its taps t = half + m*down - (lo + k)*up fall in
+    # (-up, 2*half] for k < taps, so h is zero-padded by up below, and x by
+    # taps on both sides
+    taps = 2 * half // up + 1
+    hp = np.concatenate([np.zeros(up), h])
+    xp = np.concatenate([np.zeros(taps), x, np.zeros(taps)])
+    k = np.arange(taps)
+    y = np.empty(n_out, dtype=np.float64)
+    for start in range(0, n_out, RESAMPLE_CHUNK):
+        m = np.arange(start, min(start + RESAMPLE_CHUNK, n_out))
+        lo = -((half - m * down) // up)
+        i = lo[:, None] + k  # [chunk, taps] input indices
+        t = half + m[:, None] * down - i * up
+        y[start:start + len(m)] = (xp[i + taps] * hp[t + up]).sum(1)
+    return y.astype(np.float32)
 
 
 def prepare_waveform(waveform: np.ndarray, sample_rate: int,
                      cfg: AudioFrontendConfig | None = None) -> np.ndarray:
     """Host side: mono-ize, resample to the configured rate, repeat-pad or
-    crop to the configured length."""
+    crop to the configured length. A longer source is resampled only as far
+    as the crop keeps."""
     cfg = cfg or AudioFrontendConfig()
     x = np.asarray(waveform, dtype=np.float32)
     if x.ndim == 2:
         x = x.mean(axis=0)
     if sample_rate != cfg.sample_rate:
-        x = resample_poly(x, sample_rate, cfg.sample_rate)
+        x = resample_poly(x, sample_rate, cfg.sample_rate, keep=cfg.num_samples)
     return fit_to_length(x, cfg.num_samples)

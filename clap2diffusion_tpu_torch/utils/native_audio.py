@@ -198,7 +198,7 @@ def _fallback_one(path: str, target_sr: int, target_len: int,
         if peak_norm:
             wav = peak_normalize(wav)
         if sr != target_sr:
-            wav = resample_poly(wav, sr, target_sr)
+            wav = resample_poly(wav, sr, target_sr, keep=target_len)
         if len(wav) < target_len:
             wav = np.pad(wav, (0, target_len - len(wav)))
         return wav[:target_len].astype(np.float32)
