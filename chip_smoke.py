@@ -10,7 +10,8 @@ Phases (each raises on failure, so the exit code is non-zero):
      parallel), timed. No kernel of the port is Triton. The opt-in flags
      C2D_PACKED_FLASH, C2D_WINOGRAD, C2D_INT8 and C2D_INT8_WIRE are
      cleared; phases 3b and 5b set C2D_PACKED_FLASH=1 for themselves only,
-     phase 7a C2D_INT8=1 and phase 7b C2D_INT8_WIRE=1.
+     phase 7a C2D_INT8=1 and phase 7b C2D_INT8_WIRE=1, and phase 3h each of
+     C2D_PACKED_FLASH, C2D_INT8 and C2D_WINOGRAD for one request.
   2. A census UNet forward (CFG batch 2) and VAE decode at full SD v1.5
      geometry record the shapes the serving path gives each kernel; then
      every kernel is held against its plain PyTorch version at each of those
@@ -72,6 +73,10 @@ Phases (each raises on failure, so the exit code is non-zero):
      a seeded torch.Generator, a 10 s 48 kHz synthetic waveform, hash
      tokenizer ids). Counts are reset just before and read just after: each
      request must launch flash 751 times and group_norm_silu 2,279 times.
+     On the card every request is one replay of a CUDA graph of its device
+     program, captured at the first request of its signature
+     (``diffusion/program.py``; the counts are the graph's), in this phase
+     and in every later one that serves.
   3b. Serving under C2D_PACKED_FLASH=1: one full-width UNet forward with the
      route on and off on the same inputs (bf16, and an fp32 copy), then 2
      requests with the flag set, each with exactly 250 packed, 501 per-head
@@ -136,6 +141,27 @@ Phases (each raises on failure, so the exit code is non-zero):
      at its exit), and as a base64 upload to the HTTP server: exactly 751
      / 2,279 / 801 launches each, both served PNGs bit-equal to the
      in-process image.
+  3h. One device program per request: phase 3's request and each of 3c's
+     replayed (their signatures captured already: no capture here) and run
+     eagerly (the same program launched op by op), bit for bit, with equal
+     and exact launches, one replay each; phase 3's signature replayed with
+     another guidance scale, seed, temperature and norm_target, each
+     bit-equal to the eager program at that value, nothing captured anew;
+     ``generate_stream(depth=2)`` over 4 requests against the same requests
+     one at a time; ``generate_best_of(4)`` replayed against eager (winner
+     and scores); one request under each of C2D_PACKED_FLASH, C2D_INT8 and
+     C2D_WINOGRAD replayed against eager (250 packed launches, 50 forwards'
+     int8 products); the p50 of PROGRAM_TIMED requests eager and replayed
+     (eager, replay, replay, eager), and one profiled request of each: its
+     device busy time, idle share and flash and GroupNorm kernel events by
+     name, whose sums must equal the counters' launches for that request;
+     every captured signature's capture seconds, pool bytes and replays; a
+     sweep of SWEEP_STEPS new step counts, each of which may add at most
+     SWEEP_POOL_SHARE of a batch-1 pool to the graphs' shared pool; the
+     UNet's weights loaded again in place, after which every graph is
+     dropped and the next request captured anew, bit-equal to phase 3's.
+     The captured programs, the best-of towers and the int8 weights are
+     then released.
   4. Reference check: a small configuration (flash and GroupNorm kernels
      on) in fp32 on the card against the same pipeline on the CPU (plain
      versions), under the frozen-golden bounds of tests/test_image_golden.py.
@@ -280,6 +306,7 @@ from clap2diffusion_tpu_torch.diffusion.pipeline import (
     load_pipeline,
     random_init_,
 )
+from clap2diffusion_tpu_torch.diffusion.program import CAPACITY, ROUTE_FLAGS
 from clap2diffusion_tpu_torch.models.clip_vision import (
     CLIPVisionEncoder,
     build_tower,
@@ -292,7 +319,7 @@ from clap2diffusion_tpu_torch.models.condition.convert import (
 )
 from clap2diffusion_tpu_torch.models.tokenizer import CLIPTokenizer
 from clap2diffusion_tpu_torch.data.fixtures import make_fixture_dataset
-from clap2diffusion_tpu_torch.ops import cuda_build
+from clap2diffusion_tpu_torch.ops import counters, cuda_build
 from clap2diffusion_tpu_torch.ops import flash_attention as fa
 from clap2diffusion_tpu_torch.ops import groupnorm as gn
 from clap2diffusion_tpu_torch.ops import quant as pq
@@ -642,8 +669,7 @@ def gn_grad_case(kind, shape, dtype, groups, eps, gen):
     return row
 
 
-KERNEL_FNS = (fa.flash_attention, fa.flash_attention_bwd, fa.packed_flash_attention,
-              gn.group_norm_silu, gn.group_norm, wp.conv3x3_winograd_pallas)
+KERNEL_FNS = counters.kernels()
 
 
 def reset_counts():
@@ -1016,6 +1042,19 @@ def check_new_shapes(seen, checked, gen):
     return errs, fresh
 
 
+def generate_extras(size, first_img):
+    """Phase 3c's inputs beyond phase 3's: the init image (phase 3's first
+    image: hierarchical, ddim 50, seed 0) and each request's extra
+    arguments (img2img, inpainting with the left half masked, the second
+    waveform of mixing)."""
+    left = np.zeros((size, size), np.uint8)
+    left[:, :size // 2] = 255  # regenerate the left half
+    init = first_img[0]
+    return init, {"img2img": dict(init_image=init),
+                  "inpainting": dict(init_image=init, mask_image=left),
+                  "audio_mix": dict(waveform2=np.ascontiguousarray(waveform(seed=2)[::-1]))}
+
+
 def generate_phase(pipe, wav, text, uncond, first_img, checked, card):
     """Phase 3c: the rest of ``generate`` at full width (bf16, random
     weights, phase 3's pipeline, prompt and waveform): each request of
@@ -1025,11 +1064,7 @@ def generate_phase(pipe, wav, text, uncond, first_img, checked, card):
     size = pipe.cfg.diffusion.image_size
     lat = size // 8
     kinds = ("flash_attention", "group_norm_silu", "group_norm")
-    left = np.zeros((size, size), np.uint8)
-    left[:, :size // 2] = 255  # regenerate the left half
-    init = first_img[0]  # phase 3's first image: hierarchical, ddim 50, seed 0
-    extra = {"img2img": dict(init_image=init), "inpainting": dict(init_image=init, mask_image=left),
-             "audio_mix": dict(waveform2=np.ascontiguousarray(waveform(seed=2)[::-1]))}
+    init, extra = generate_extras(size, first_img)
     rows, images = [], {}
 
     def run(name, kw, want):
@@ -1120,6 +1155,231 @@ def generate_phase(pipe, wav, text, uncond, first_img, checked, card):
          "shapes_first_checked_here": fresh, "errs": errs,
          "sm_clock,power_draw,temperature_after": smi("clocks.sm,power.draw,temperature.gpu")})
     return {"rows": rows, "errs": errs, "launches": launches, "images": images}
+
+
+# Phase 3h: one device program per request. The eager program is the same
+# one launched op by op (the CPU's path); the p50 rounds run in the order
+# eager, replay, replay, eager.
+PROGRAM_TIMED = 5
+PROGRAM_VALUES = (("guidance_scale", 3.0), ("seed", 9), ("temperature", 0.9),
+                  ("norm_target", 40.0))
+PROGRAM_FLAGS = ("C2D_PACKED_FLASH", "C2D_INT8", "C2D_WINOGRAD")
+STREAM_SEEDS = (21, 22, 23, 24)
+# a sweep of a Steps control over new signatures: with one shared pool,
+# each may add at most this share of the pool a batch-1 request needs
+SWEEP_STEPS = (11, 12, 13, 14)
+SWEEP_POOL_SHARE = 0.1
+
+
+@contextlib.contextmanager
+def eager(pipe):
+    """Requests on ``pipe`` run the device program eagerly, uncaptured."""
+    was, pipe._capture = pipe._capture, False
+    try:
+        yield
+    finally:
+        pipe._capture = was
+
+
+def all_counts():
+    """Every count of the registry but the shapes: the kernels' launches
+    and the int8 products."""
+    return {name.split(".")[0]: getattr(o, a) for name, (o, a) in counters.COUNTERS.items()
+            if a != "shapes"}
+
+
+def replays(pipe):
+    return sum(c.replays for c in pipe.programs.captured.values())
+
+
+def signature_rows(pipe):
+    """Each captured signature, the least recently used first: its statics,
+    inputs and routes, what its capture cost (``pool_bytes``: what it added
+    to the shared pool) and how many requests it served."""
+    return [{"model_type": s.model_type, "sampler": s.sampler, "batch": s.batch,
+             "steps": s.num_steps, "init_steps": s.init_steps,
+             "per_lane_seeds": s.per_lane_seeds,
+             "inputs": {n: list(shape) for n, shape, _ in s.arrays if shape},
+             "routes": {f: v for f, v in zip(ROUTE_FLAGS, s.routes) if v is not None},
+             "capture_s": c.capture_s, "pool_bytes": c.pool_bytes,
+             "device_bytes": c.device_bytes, "replays": c.replays}
+            for s, c in pipe.programs.captured.items()]
+
+
+def program_phase(pipe, wav, text, uncond, first_img, checked, card):
+    """Phase 3h: every request of a seen signature is one replay of its CUDA
+    graph, bit-equal to the same device program run eagerly: phase 3's
+    request and each of 3c's, the dynamic values changed, streaming,
+    best-of and the opt-in routes; the p50, device busy time and idle share
+    of both; each signature's capture seconds and pool bytes."""
+    size = pipe.cfg.diffusion.image_size
+    base = dict(waveform=wav, text_ids=text, uncond_ids=uncond, model_type="hierarchical",
+                num_steps=50, guidance_scale=7.5, seed=0)
+    triple = ("flash_attention", "group_norm_silu", "group_norm")
+    verdicts, rows = {}, {}
+    reset_counts()
+
+    def both(name, kw, want=None):
+        """``generate(**kw)`` replayed, then eagerly: the images held bit for
+        bit, the launches of both equal (and ``want``'s flash, GN+SiLU and
+        GN), the replayed request one replay. Returns the launches."""
+        out = {}
+        for mode in ("replay", "eager"):
+            before, n0 = all_counts(), replays(pipe)
+            t0 = time.perf_counter()
+            with eager(pipe) if mode == "eager" else contextlib.nullcontext():
+                img = pipe.generate(**kw)
+            wall = time.perf_counter() - t0
+            after = all_counts()
+            out[mode] = {"image": img, "seconds": wall, "replays": replays(pipe) - n0,
+                         "launches": {k: after[k] - before[k] for k in after}}
+        got = out["eager"]["launches"]
+        if (out["replay"]["replays"], out["eager"]["replays"]) != (1, 0):
+            raise AssertionError(f"3h {name}: replays {out['replay']['replays']} "
+                                 f"(replayed), {out['eager']['replays']} (eager)")
+        if out["replay"]["launches"] != got or \
+                (want is not None and tuple(got[k] for k in triple) != want):
+            raise AssertionError(f"3h {name}: launches replayed {out['replay']['launches']}, "
+                                 f"eager {got}, want {want}")
+        hold(f"{name}_replay_vs_eager", out["replay"]["image"], out["eager"]["image"], verdicts)
+        rows[name] = {"replay_s": out["replay"]["seconds"], "eager_s": out["eager"]["seconds"],
+                      "launches": got}
+        return out["replay"]["image"], got
+
+    # phase 3's request and each of 3c's: their signatures are captured already
+    n_sigs = len(pipe.programs.captured)
+    img, _ = both("phase3", base, REQUEST_LAUNCHES[50])
+    hold("phase3_replay_vs_phase3", img, first_img, verdicts)
+    _, extra = generate_extras(size, first_img)
+    for name, (kw, want) in GENERATE_REQUESTS.items():
+        b = kw.get("batch", 1)
+        both(name, {**base, "text_ids": np.repeat(text, b, 0),
+                    "uncond_ids": np.repeat(uncond, b, 0), **kw, **extra.get(name, {})}, want)
+    seen_before = len(pipe.programs.captured) - n_sigs
+
+    # one signature with other dynamic values: nothing dynamic is baked in
+    n_sigs = len(pipe.programs.captured)
+    for key, value in PROGRAM_VALUES:
+        img, _ = both(f"{key}_{value}", {**base, key: value}, REQUEST_LAUNCHES[50])
+        rows[f"{key}_{value}"]["differs_from_phase3"] = not np.array_equal(img, first_img)
+    if len(pipe.programs.captured) != n_sigs or seen_before:
+        raise AssertionError(f"3h: dynamic values or seen requests captured "
+                             f"{len(pipe.programs.captured) - n_sigs + seen_before} programs")
+
+    # generate_stream, two in flight, against one request at a time
+    one = {k: v for k, v in base.items() if k != "seed"}
+    n0 = replays(pipe)
+    sequential = [pipe.generate(**one, seed=s) for s in STREAM_SEEDS]
+    streamed = list(pipe.generate_stream([dict(seed=s) for s in STREAM_SEEDS], depth=2, **one))
+    for s, a, b in zip(STREAM_SEEDS, streamed, sequential):
+        hold(f"stream_seed_{s}_vs_sequential", a, b, verdicts)
+    if replays(pipe) - n0 != 2 * len(STREAM_SEEDS):
+        raise AssertionError(f"3h stream: {replays(pipe) - n0} replays")
+
+    # best-of: the candidates replayed, scored eagerly, against it all eager
+    best = {}
+    for mode in ("replay", "eager"):
+        with eager(pipe) if mode == "eager" else contextlib.nullcontext():
+            best[mode] = pipe.generate_best_of(BEST_OF_N, waveform=wav, text_ids=text,
+                                               uncond_ids=uncond, num_steps=50,
+                                               guidance_scale=7.5, seed=0)
+    hold(f"best_of_{BEST_OF_N}_replay_vs_eager", best["replay"][0], best["eager"][0], verdicts)
+    if not np.array_equal(best["replay"][1], best["eager"][1]):
+        verdicts["best_of_scores"] = {"fault": f"{best['replay'][1]} against "
+                                               f"{best['eager'][1]}"}
+
+    # the opt-in routes: a signature each (the packed one captured in 3b)
+    for name in PROGRAM_FLAGS:
+        with flag(name):
+            _, got = both(name, base)
+        want = {"C2D_PACKED_FLASH": ("packed_flash_attention", PACKED_PER_IMAGE),
+                "C2D_INT8": ("int8_gemm", 50 * INT8_GEMMS_PER_FORWARD),
+                "C2D_WINOGRAD": ("flash_attention", FLASH_PER_IMAGE)}[name]
+        if got[want[0]] != want[1]:
+            raise AssertionError(f"3h {name}: {want[0]} {got[want[0]]}, want {want[1]}")
+
+    # the p50 of each, in turns; then one profiled request of each
+    times = {"eager": [], "replay": []}
+    for mode in ("eager", "replay", "replay", "eager"):
+        with eager(pipe) if mode == "eager" else contextlib.nullcontext():
+            for i in range(PROGRAM_TIMED):
+                t0 = time.perf_counter()
+                pipe.generate(**{**base, "seed": i})
+                times[mode].append(time.perf_counter() - t0)
+    p50 = {mode: statistics.median(t) for mode, t in times.items()}
+    from torch.profiler import ProfilerActivity, profile
+
+    from clap2diffusion_tpu_torch.tools.trace_request import device_summary
+
+    profiled = {}
+    for mode in ("eager", "replay"):
+        before = all_counts()
+        with eager(pipe) if mode == "eager" else contextlib.nullcontext(), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe.generate(**base)
+        after = all_counts()
+        s = device_summary(prof)
+        kernels = {k: n for k, n in s["calls_by_kernel"].items()
+                   if "flash" in k or "group_norm" in k}
+        # the card's own record of the request against the counters: a
+        # replay adds what the capture counted, the trace shows what ran
+        traced = {"flash": sum(n for k, n in kernels.items() if "flash_fwd" in k),
+                  "group_norm": sum(n for k, n in kernels.items() if "group_norm_fwd" in k)}
+        counted = {"flash": sum(after[k] - before[k] for k in ("flash_attention",
+                                                               "packed_flash_attention")),
+                   "group_norm": sum(after[k] - before[k] for k in ("group_norm_silu",
+                                                                    "group_norm"))}
+        if traced != counted:
+            raise AssertionError(f"3h profiled {mode}: the trace shows {traced} kernels, "
+                                 f"the counters {counted}")
+        profiled[mode] = {
+            "device_busy_s": s["device_kernel_s"], "p50_s": p50[mode],
+            "idle_share": 1.0 - s["device_kernel_s"] / p50[mode], "device_events": s["launches"],
+            "by_category_s": s["by_category_s"], "launches_by_category": s["launches_by_category"],
+            "flash_and_group_norm_kernels": kernels, "traced_vs_counted": traced}
+
+    # a sweep over new signatures: one shared pool, so each adds little
+    # (``unit``: the pool phase 3's request, the pipeline's first capture, made)
+    unit = max(c.pool_bytes for sig, c in pipe.programs.captured.items()
+               if sig.batch == 1 and not any(sig.routes))
+    sweep = []
+    for steps in SWEEP_STEPS:
+        n0 = len(pipe.programs.captured)
+        pipe.generate(**{**base, "num_steps": steps})
+        cap = next(reversed(pipe.programs.captured.values()))
+        sweep.append({"steps": steps, "pool_bytes": cap.pool_bytes, "capture_s": cap.capture_s,
+                      "device_bytes": cap.device_bytes})
+        n = len(pipe.programs.captured)
+        if n != min(n0 + 1, CAPACITY) or cap.pool_bytes > SWEEP_POOL_SHARE * unit:
+            raise AssertionError(f"3h sweep: {steps} steps added {cap.pool_bytes} bytes to "
+                                 f"the pool (a batch-1 pool {unit}), {n0} -> {n} programs")
+
+    signatures = signature_rows(pipe)
+
+    # the weights loaded again in place: every graph is dropped, the next
+    # request captured anew and its image phase 3's
+    pipe.unet.load_state_dict(pipe.unet.state_dict())
+    before = all_counts()
+    hold("after_load_state_dict_vs_phase3", pipe.generate(**base), first_img, verdicts)
+    after = all_counts()
+    got = tuple(after[k] - before[k] for k in triple)
+    caps = list(pipe.programs.captured.values())
+    if [c.replays for c in caps] != [1] or got != REQUEST_LAUNCHES[50]:
+        raise AssertionError(f"3h: after the weights were loaded, programs with "
+                             f"{[c.replays for c in caps]} replays, launches {got}")
+
+    seen = {fn.__name__: dict(fn.shapes)
+            for fn in (fa.flash_attention, gn.group_norm_silu, gn.group_norm)}
+    errs, fresh = check_new_shapes(seen, checked, torch.Generator(device="cuda").manual_seed(8))
+    log({"phase": "one_program", "card": card, "requests": rows, "images": verdicts,
+         "p50_s": p50, "times_s": times, "order": ["eager", "replay", "replay", "eager"],
+         "profiled": profiled, "signatures": signatures, "sweep": sweep,
+         "capture_s_total": sum(r["capture_s"] for r in signatures),
+         "pool_bytes_total": sum(r["pool_bytes"] for r in signatures),
+         "shapes_first_checked_here": fresh, "errs": errs,
+         "sm_clock,power_draw,temperature_after": smi("clocks.sm,power.draw,temperature.gpu")})
+    settle("phase 3h", verdicts)
+    return {"errs": errs, "p50_s": p50}
 
 
 # Phase 6a: one chunk of 8 frames through the VAE encoder (phase 2e's census
@@ -2577,6 +2837,7 @@ def int8_phase(pipe, unet_args, wav, text, uncond, card):
     drift = image_diff(imgs[True][0], imgs[False][0])
     repeat = {on: all(np.array_equal(im, ims[0]) for im in ims) for on, ims in imgs.items()}
     drop_int8_weights(pipe.unet)
+    pipe.programs.clear()  # the int8 graph read the weights just dropped
     torch.cuda.empty_cache()
     out = {"card": card, "unet_forward_ms": {"int8": fwd_ms[True], "default": fwd_ms[False]},
            "p50_s": {"int8": statistics.median(wall[True]),
@@ -2832,6 +3093,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     cleared = [name for name in FLAGS if os.environ.pop(name, None) is not None]
     card = smi()
     log(card)
@@ -3181,16 +3443,24 @@ def main() -> int:
 
     # -- 3f. evaluation at full width --------------------------------------------
     eval_out = evaluation_phase(pipe, phase3_imgs + [gen_out["images"]["sonic"][0]], card, p50)
-    # the CLIP towers of 3e and the scorer built from them are released, so
-    # that the later phases' peak memory compares with earlier runs'
-    pipe.extra_params.clear()
-    pipe._scorer = None
-    torch.cuda.empty_cache()
 
     # -- 3g. audio files through load_audio, the CLI and the server ---------------
     for kind, err in audio_files_phase(pipe, text, uncond, os.path.join(kept, "pipeline"),
                                        checked, p50, card).items():
         errs[kind] = max(errs[kind], err)
+    torch.cuda.empty_cache()
+
+    # -- 3h. one device program per request ----------------------------------------
+    for kind, err in program_phase(pipe, wav, text, uncond, first_img, checked,
+                                   card)["errs"].items():
+        errs[kind] = max(errs[kind], err)
+    # the CLIP towers of 3e, the scorer built from them, the int8 weights and
+    # the captured programs are released, so that the later phases' peak
+    # memory compares with earlier runs'
+    pipe.extra_params.clear()
+    pipe._scorer = None
+    drop_int8_weights(pipe.unet)
+    pipe.programs.clear()
     torch.cuda.empty_cache()
 
     # -- 4. small reference: the kernels in fp32 on the card vs the CPU -------
@@ -3341,7 +3611,8 @@ def main() -> int:
         errs[kind] = max(errs[kind], err)
 
     # -- 8. the measurement tools, each as a user runs it ---------------------------
-    torch.cuda.empty_cache()  # the tools' processes share the card with this one
+    pipe.programs.clear()  # the tools' processes share the card with this one
+    torch.cuda.empty_cache()
     bench_tools_phase(p50)
 
     # -- the kernels line -----------------------------------------------------
@@ -3481,6 +3752,7 @@ def main() -> int:
                     "bound_by")}
                   for xs, co in BENCH_WINO_SHAPES for dt in ("torch.bfloat16", "torch.float32")],
     })
+    log({"phase": "script", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

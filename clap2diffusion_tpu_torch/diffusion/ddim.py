@@ -3,28 +3,34 @@
 
 SD v1.5 scaled-linear betas (0.00085 -> 0.012, 1000 steps), leading-spaced
 inference timesteps with steps_offset 1, epsilon prediction. Each JAX
-sampler is one ``lax.scan``; here each is a Python loop with one UNet call
-per step. ``SAMPLERS`` holds the four of the JAX package under its names,
-with its uniform signature ``(eps_fn, schedule, latents,
-num_inference_steps, timesteps=None, blend_fn=None, rng=None)``:
+sampler is one ``lax.scan`` inside the request's one compiled program;
+here each is a Python loop with one UNet call per step, which on CUDA runs
+once, while ``diffusion/program.py`` captures the request's program into a
+CUDA graph that every later request of its signature replays. ``SAMPLERS``
+holds the four of the JAX package under its names, with its uniform
+signature ``(eps_fn, schedule, latents, num_inference_steps,
+timesteps=None, blend_fn=None, rng=None)``:
 
 - ``ddim``: eta=0.
 - ``dpmpp_2m``: DPM-Solver++(2M), first order on the first step, in fp32.
 - ``dpmpp_2m_karras``: the same on the Karras sigma grid.
 - ``euler_a``: DDIM with eta=1, stochastic.
 
-``timesteps`` overrides the grid (img2img runs its tail), ``blend_fn(lat,
-t_prev)`` post-processes each update (inpainting), and ``rng`` is the
-stochastic sampler's noise: a draw callable ``rng(i, shape)`` -> fp32
-standard normals for step ``i`` (see ``generator_draw``). The deterministic
-samplers ignore it. The JAX package draws with threefry from
-``fold_in(key, i)``; the port's draws come from ``torch.Generator``s.
+``timesteps`` overrides the grid (img2img runs its tail; ``generate``
+passes every grid as Python ints, so that the loop reads no tensor on the
+host), ``blend_fn(lat, t_prev)`` post-processes each update (inpainting),
+and ``rng`` is the stochastic sampler's noise: a draw callable ``rng(i,
+shape)`` -> fp32 standard normals for step ``i`` (see ``generator_draw``).
+The deterministic samplers ignore it. The JAX package draws with threefry
+from ``fold_in(key, i)``; the port's draws come from ``torch.Generator``s,
+and ``generate`` draws them ahead of the program (``predraw``), which then
+reads them from one stacked tensor (``stacked_draw``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -105,8 +111,9 @@ def img2img_timesteps(num_inference_steps: int, strength: float,
 
 
 def _grid(schedule: NoiseSchedule, num_inference_steps: int,
-          timesteps: Optional[torch.Tensor]):
-    """(t, t_prev) pairs of the grid, ``t_prev = -1`` at the final step."""
+          timesteps: Optional[Union[torch.Tensor, Sequence[int]]]):
+    """(t, t_prev) pairs of the grid (``timesteps``: a tensor or ints),
+    ``t_prev = -1`` at the final step."""
     ts = (ddim_timesteps(num_inference_steps, schedule.num_train_timesteps)
           if timesteps is None else timesteps)
     ts = [int(t) for t in ts]
@@ -271,6 +278,44 @@ SAMPLERS = {
     "dpmpp_2m_karras": dpmpp_2m_karras_sample,
     "euler_a": euler_ancestral_sample,
 }
+STOCHASTIC = ("euler_a",)  # the samplers that draw from ``rng``
+
+
+def sampler_timesteps(sampler: str, schedule: NoiseSchedule, num_inference_steps: int,
+                      init_steps: int = 0) -> Tuple[int, ...]:
+    """The grid ``SAMPLERS[sampler]`` runs, as Python ints: the DDIM grid
+    (the Karras grid for ``dpmpp_2m_karras``), or with ``init_steps`` its
+    img2img tail of that many steps on the DDIM grid."""
+    if init_steps > 0:
+        ts = ddim_timesteps(num_inference_steps, schedule.num_train_timesteps)[
+            num_inference_steps - init_steps:]
+    elif sampler == "dpmpp_2m_karras":
+        ts = karras_timesteps(num_inference_steps, schedule)
+    else:
+        ts = ddim_timesteps(num_inference_steps, schedule.num_train_timesteps)
+    return tuple(int(t) for t in ts)
+
+
+def predraw(rng: Draw, timesteps: Sequence[int], shape: tuple, device=None) -> torch.Tensor:
+    """The stochastic sampler's noise, drawn ahead of its loop: ``rng(i,
+    shape)`` for every step ``i`` of the grid that draws (all but the
+    final one), in the loop's order, stacked [steps - 1, *shape] fp32. The
+    draws are the loop's own, bit for bit."""
+    lanes = getattr(rng, "lanes", None)
+    if lanes is not None and lanes != shape[0]:
+        raise ValueError(f"per-lane rng has {lanes} keys for batch {shape[0]}")
+    noise = [rng(i, tuple(shape)) for i in range(len(timesteps) - 1)]
+    if not noise:
+        return torch.empty((0, *shape), dtype=torch.float32, device=device)
+    return torch.stack(noise)
+
+
+def stacked_draw(noise: torch.Tensor) -> Draw:
+    """The draw callable over ``predraw``'s stack: step ``i`` reads
+    ``noise[i]``."""
+    def draw(i: int, shape: tuple) -> torch.Tensor:
+        return noise[i]
+    return draw
 
 
 def _cat(a: Optional[Dict], b: Optional[Dict]):
@@ -282,16 +327,19 @@ def _cat(a: Optional[Dict], b: Optional[Dict]):
 
 
 def cfg_eps_fn(unet_apply: Callable, context_cond, context_uncond,
-               guidance_scale: float, audio_cond=None, audio_uncond=None,
-               guidance_rescale: float = 0.0):
+               guidance_scale, audio_cond=None, audio_uncond=None,
+               guidance_rescale=0.0):
     """An eps_fn that folds classifier-free guidance into ONE batched UNet
     forward: [uncond; cond] along the batch axis. ``guidance_rescale`` in
     [0, 1] is the CFG-rescale of Lin et al. 2023 (eq. 15-16); 0.0 is plain
     CFG. The guided prediction is formed in float32, as the JAX program
-    forms it from its float32 guidance scale."""
+    forms it from its float32 guidance scale. Both scalars are floats or
+    0-dim fp32 tensors (``generate`` passes device tensors, which a CUDA
+    graph reads at each replay)."""
     ctx = _cat(context_uncond, context_cond)
     audio = _cat(audio_uncond, audio_cond)
-    w = float(guidance_rescale)
+    scale = guidance_scale if isinstance(guidance_scale, torch.Tensor) else float(guidance_scale)
+    w = guidance_rescale if isinstance(guidance_rescale, torch.Tensor) else float(guidance_rescale)
 
     def eps_fn(latents: torch.Tensor, t: int) -> torch.Tensor:
         b = latents.shape[0]
@@ -299,7 +347,7 @@ def cfg_eps_fn(unet_apply: Callable, context_cond, context_uncond,
         t2 = torch.full((2 * b,), int(t), dtype=torch.int32, device=latents.device)
         eps2 = unet_apply(lat2, t2, ctx, audio)
         eps_u, eps_c = eps2[:b], eps2[b:]
-        g32 = eps_u.float() + float(guidance_scale) * (eps_c - eps_u).float()
+        g32 = eps_u.float() + scale * (eps_c - eps_u).float()
         c32 = eps_c.float()
         axes = tuple(range(1, g32.dim()))
         std_c = c32.std(dim=axes, keepdim=True, correction=0)

@@ -33,6 +33,16 @@ sample noise, the img2img noise and the stochastic sampler's noise each
 from a generator of its own (see ``stream_seed``); with ``seeds``, each
 lane's latents and sampler noise from that lane's seed alone.
 
+Execution, as the JAX package's "one jit-compiled function per (batch,
+steps, mode)": a request is host preparation (``_prepare``: every copy
+from the host and every random draw, the stochastic sampler's per-step
+noise drawn ahead, the dynamic scalars as 0-dim fp32 device tensors), then
+the device program (``_program``), which reads only those tensors. On CUDA
+the program is one replay of a CUDA graph, captured at the first request of
+its static signature (``diffusion/program.py``: ``Signature``,
+``Programs``); the CPU, and a pipeline under a model-parallel group, run it
+eagerly (ROADMAP known delta 23).
+
 Fetching: ``_dispatch_generate`` returns a handle whose ``numpy()`` gives
 the images. On CUDA it is a ``HostCopy``: the copy to pinned host memory
 is enqueued right after the request's last kernel, with an event behind
@@ -62,6 +72,7 @@ layers split over its model ranks (``parallel/sharding.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -78,12 +89,16 @@ from clap2diffusion_tpu_torch.core.config import Config
 from clap2diffusion_tpu_torch.core.device import resolve_device
 from clap2diffusion_tpu_torch.diffusion.ddim import (
     SAMPLERS,
+    STOCHASTIC,
     NoiseSchedule,
     cfg_eps_fn,
-    ddim_timesteps,
     generator_draw,
     img2img_timesteps,
+    predraw,
+    sampler_timesteps,
+    stacked_draw,
 )
+from clap2diffusion_tpu_torch.diffusion.program import Inputs, Programs, Signature
 from clap2diffusion_tpu_torch.models.clap.frontend import (
     fit_to_length,
     log_mel_spectrogram,
@@ -498,6 +513,29 @@ class AudioToImagePipeline:
         self.unet = mods["unet"]
         self.vae = mods["vae"]
         self.schedule = NoiseSchedule.create(cfg.diffusion.scheduler, device=self.device)
+        # a request is one replay of a CUDA graph on the card (Programs), an
+        # eager run of the same program on the CPU and under a model-parallel
+        # group (shard_pipeline_for_serving)
+        self._capture = self.device.type == "cuda"
+        self.programs = Programs(self._weights)
+        self._grids: Dict[Tuple[str, int, int], Tuple[int, ...]] = {}
+
+    def _weights(self) -> Iterable[torch.Tensor]:
+        """Every parameter and buffer of the pipeline's modules: what a
+        captured program reads by address."""
+        for name in CORE_TOWERS:
+            m = getattr(self, name)
+            if m is not None:
+                yield from m.parameters()
+                yield from m.buffers()
+
+    def _grid(self, sampler: str, num_steps: int, init_steps: int) -> Tuple[int, ...]:
+        """The sampler's step grid as Python ints, computed on the host at
+        its first use and kept: static, as JAX's grid is."""
+        key = (sampler, num_steps, init_steps)
+        if key not in self._grids:
+            self._grids[key] = sampler_timesteps(sampler, self.schedule, num_steps, init_steps)
+        return self._grids[key]
 
     @property
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -572,9 +610,10 @@ class AudioToImagePipeline:
         ids = torch.as_tensor(np.asarray(input_ids, np.int32), device=self.device)
         return self.clip_text(ids)
 
-    def _condition(self, clap_emb: torch.Tensor, model_type: str, norm_target: float,
-                   temperature: float):
-        """CLAP [B,512] -> (tokens77, routed audio dict) per model type."""
+    def _condition(self, clap_emb: torch.Tensor, model_type: str, norm_target, temperature):
+        """CLAP [B,512] -> (tokens77, routed audio dict) per model type;
+        ``norm_target`` and ``temperature`` are floats or 0-dim fp32
+        tensors."""
         if model_type == "baseline":
             return None, None
         if model_type == "sonic":
@@ -601,59 +640,99 @@ class AudioToImagePipeline:
 
     # -- generation -----------------------------------------------------------
 
-    @torch.inference_mode()
-    def _generate(self, draws: RequestDraws, wav, wav2, text_ids, uncond_ids, *,
-                  num_steps: int, guidance_scale: float, model_type: str, batch: int,
-                  norm_target: float, temperature: float, sampler: str, init_steps: int,
-                  init: Optional[np.ndarray], audio_mix: float, mask: Optional[np.ndarray],
-                  guidance_rescale: float) -> torch.Tensor:
-        """The JAX program ``_generate_jit``, step by step; returns uint8
-        images [B, H, W, 3] on the device, unsynchronised."""
+    def _prepare(self, draws: RequestDraws, wav, wav2, text_ids, uncond_ids, *,
+                 num_steps: int, guidance_scale: float, model_type: str, batch: int,
+                 norm_target: float, temperature: float, sampler: str, init_steps: int,
+                 init: Optional[np.ndarray], audio_mix: float, mask: Optional[np.ndarray],
+                 guidance_rescale: float, per_lane_seeds: bool) -> Tuple[Signature, Inputs]:
+        """Host preparation of a request: every copy from the host and every
+        random draw (the initial latents, or img2img's VAE and noising
+        draws; the stochastic sampler's per-step noise, drawn ahead), and
+        the dynamic scalars as 0-dim fp32 tensors, all on the device: the
+        device program's inputs, and the request's ``Signature``."""
         dev = self.device
-        clap_emb = None
+        x: Inputs = {}
         if wav is not None:
-            wf = _dequantize_pcm16(self._upload(wav))
+            x["waveform"] = self._upload(wav)
             if wav2 is not None:
+                x["waveform2"] = self._upload(wav2)
+        x["ids"] = self._upload(np.concatenate([text_ids, uncond_ids], axis=0))
+        lat = self.cfg.diffusion.image_size // 8
+        if init_steps > 0:
+            x["init_image"] = self._upload(init)
+            rows = batch if batch > 1 and init.shape[0] == 1 else init.shape[0]
+            shape = (rows, lat, lat, self.cfg.diffusion.vae.latent_channels)
+            x["vae_noise"] = draws.vae(shape)
+            x["img2img_noise"] = draws.img2img(shape)
+            if mask is not None:
+                x["mask"] = self._upload(mask)
+        else:
+            shape = (batch, lat, lat, 4)
+            x["latents"] = draws.latents(shape)
+        if sampler in STOCHASTIC:
+            x["sampler_noise"] = predraw(draws.sampler(), self._grid(sampler, num_steps, init_steps),
+                                         shape, dev)
+        for name, value in (("guidance_scale", guidance_scale), ("norm_target", norm_target),
+                            ("temperature", temperature), ("audio_mix", audio_mix),
+                            ("guidance_rescale", guidance_rescale)):
+            x[name] = torch.full((), value, dtype=torch.float32, device=dev)
+        x = {k: v.to(dev) for k, v in x.items()}  # a caller's draws may lie elsewhere
+        sig = Signature.of(x, num_steps=num_steps, model_type=model_type, batch=batch,
+                           sampler=sampler, init_steps=init_steps,
+                           per_lane_seeds=per_lane_seeds)
+        return sig, x
+
+    def _program(self, sig: Signature, x: Inputs) -> torch.Tensor:
+        """The device program, the JAX ``_generate_jit``: dequantise ->
+        log-mel -> HTSAT -> conditioning -> CLIP text -> the sampler loop
+        with folded CFG -> VAE decode -> uint8 [B, H, W, 3]. It reads only
+        ``x`` (``_prepare``'s tensors) and ``sig``'s statics: no copy from
+        the host, no read of a device value on the host."""
+        clap_emb = None
+        if "waveform" in x:
+            wf = _dequantize_pcm16(x["waveform"])
+            if "waveform2" in x:
                 # both sources in one CLAP call, then the blend, renormalised
                 # (CLAP embeddings lie on the unit sphere)
-                wf = torch.cat([wf, _dequantize_pcm16(self._upload(wav2))])
+                wf = torch.cat([wf, _dequantize_pcm16(x["waveform2"])])
             clap_emb = self.clap_audio(log_mel_spectrogram(wf, self.cfg.clap.frontend))
-            if wav2 is not None:
+            if "waveform2" in x:
                 n = clap_emb.shape[0] // 2
-                mixed = audio_mix * clap_emb[:n] + (1.0 - audio_mix) * clap_emb[n:]
+                mix = x["audio_mix"]
+                mixed = mix * clap_emb[:n] + (1.0 - mix) * clap_emb[n:]
                 clap_emb = mixed / torch.clamp(
                     torch.linalg.vector_norm(mixed, dim=-1, keepdim=True), min=1e-8)
-            if batch > 1 and clap_emb.shape[0] == 1:
-                clap_emb = clap_emb.expand(batch, -1)
-        ids = self._upload(np.concatenate([text_ids, uncond_ids], axis=0))
-        ehs_cond, ehs_uncond = self.clip_text(ids).chunk(2, dim=0)
-        tokens77, routed = ((None, None) if clap_emb is None else
-                            self._condition(clap_emb, model_type, norm_target, temperature))
-        if model_type == "audio_tokens" and tokens77 is not None:
+            if sig.batch > 1 and clap_emb.shape[0] == 1:
+                clap_emb = clap_emb.expand(sig.batch, -1)
+        ehs_cond, ehs_uncond = self.clip_text(x["ids"]).chunk(2, dim=0)
+        tokens77, routed = ((None, None) if clap_emb is None else self._condition(
+            clap_emb, sig.model_type, x["norm_target"], x["temperature"]))
+        if sig.model_type == "audio_tokens" and tokens77 is not None:
             ehs_cond = tokens77.to(ehs_cond.dtype)
 
-        eps_fn = cfg_eps_fn(self.unet, ehs_cond, ehs_uncond, guidance_scale,
+        eps_fn = cfg_eps_fn(self.unet, ehs_cond, ehs_uncond, x["guidance_scale"],
                             audio_cond=routed, audio_uncond=routed,
-                            guidance_rescale=guidance_rescale)
-        sample = SAMPLERS[sampler]
-        if init_steps > 0:
+                            guidance_rescale=x["guidance_rescale"])
+        sample = SAMPLERS[sig.sampler]
+        rng = stacked_draw(x["sampler_noise"]) if "sampler_noise" in x else None
+        ts = list(self._grid(sig.sampler, sig.num_steps, sig.init_steps))
+        blend_fn = None
+        if sig.init_steps > 0:
             # SDEdit img2img: encode the init image, noise it to the first
             # timestep of the grid's tail, denoise only that tail
-            ts = ddim_timesteps(num_steps, self.schedule.num_train_timesteps)[
-                num_steps - init_steps:]
-            x = (self._upload(init).float() / 127.5 - 1.0).to(self.compute_dtype)
-            if batch > 1 and x.shape[0] == 1:
-                x = x.expand(batch, *x.shape[1:])
-            x0 = self.vae.sample_latent(x, draws.vae)
-            noise = draws.img2img(tuple(x0.shape)).to(x0.dtype)
-            t0 = torch.full((x0.shape[0],), int(ts[0]), dtype=torch.long, device=dev)
+            img = (x["init_image"].float() / 127.5 - 1.0).to(self.compute_dtype)
+            if sig.batch > 1 and img.shape[0] == 1:
+                img = img.expand(sig.batch, *img.shape[1:])
+            x0 = self.vae.sample_latent(img, lambda shape: x["vae_noise"])
+            noise = x["img2img_noise"].to(x0.dtype)
+            dev = x0.device
+            t0 = torch.full((x0.shape[0],), ts[0], dtype=torch.long, device=dev)
             latents = self.schedule.add_noise(x0, noise, t0)
-            blend_fn = None
-            if mask is not None:
+            if "mask" in x:
                 # inpainting: after every update, the known (mask 0) region
                 # is the init latent noised to the step's level (x0 itself
                 # at the final step)
-                m = self._upload(mask)
+                m = x["mask"]
 
                 def blend_fn(lat: torch.Tensor, t_prev: int) -> torch.Tensor:
                     known = x0
@@ -661,15 +740,26 @@ class AudioToImagePipeline:
                         tp = torch.full((x0.shape[0],), t_prev, dtype=torch.long, device=dev)
                         known = self.schedule.add_noise(x0, noise, tp)
                     return (m * lat.float() + (1.0 - m) * known.float()).to(lat.dtype)
-
-            latents = sample(eps_fn, self.schedule, latents, num_steps, timesteps=ts,
-                             blend_fn=blend_fn, rng=draws.sampler())
         else:
-            lat = self.cfg.diffusion.image_size // 8
-            latents = draws.latents((batch, lat, lat, 4)).to(self.compute_dtype)
-            latents = sample(eps_fn, self.schedule, latents, num_steps, rng=draws.sampler())
+            latents = x["latents"].to(self.compute_dtype)
+        latents = sample(eps_fn, self.schedule, latents, sig.num_steps, timesteps=ts,
+                         blend_fn=blend_fn, rng=rng)
         img = self.vae.decode_latent(latents)
         return torch.clamp((img + 1.0) * 127.5, 0, 255).to(torch.uint8)
+
+    @torch.inference_mode()
+    def _generate(self, draws: RequestDraws, wav, wav2, text_ids, uncond_ids,
+                  **statics) -> torch.Tensor:
+        """The JAX program ``_generate_jit``: host preparation, then the
+        device program, on CUDA as one replay of the request's signature's
+        CUDA graph (captured at the signature's first request;
+        ``diffusion/program.py``), on the CPU and under a model-parallel
+        group eagerly. Returns uint8 images [B, H, W, 3] on the device,
+        unsynchronised."""
+        sig, x = self._prepare(draws, wav, wav2, text_ids, uncond_ids, **statics)
+        if not self._capture:
+            return self._program(sig, x)
+        return self.programs.run(sig, x, functools.partial(self._program, sig))
 
     def generate(self, *args, **kw) -> np.ndarray:
         """Generate images [B, H, W, 3] uint8 (blocking); the arguments of
@@ -777,7 +867,8 @@ class AudioToImagePipeline:
             guidance_scale=float(guidance_scale), model_type=model_type, batch=batch,
             norm_target=float(norm_target), temperature=float(temperature), sampler=sampler,
             init_steps=init_steps, init=init, audio_mix=float(np.float32(audio_mix)),
-            mask=mask, guidance_rescale=float(guidance_rescale))
+            mask=mask, guidance_rescale=float(guidance_rescale),
+            per_lane_seeds=seeds is not None)
         if not img.is_cuda:
             return img
         with torch.inference_mode():
@@ -918,6 +1009,10 @@ def shard_pipeline_for_serving(pipe: AudioToImagePipeline, mesh) -> AudioToImage
             local = shard_params(module, module.state_dict(), mesh)
             module.load_state_dict(local, strict=True)
     pipe._scorer = None
+    # the sharded layers gather over the group, which a CUDA graph does not
+    # take (Gloo; ROADMAP known delta 23): requests run the program eagerly
+    pipe.programs.clear()
+    pipe._capture = False
     return pipe
 
 

@@ -15,12 +15,13 @@ from __future__ import annotations
 import functools
 import math
 from fractions import Fraction
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from clap2diffusion_tpu_torch.core.config import AudioFrontendConfig
+from clap2diffusion_tpu_torch.core.device import device_constant
 
 
 def hertz_to_mel_slaney(freq) -> np.ndarray:
@@ -74,19 +75,17 @@ def _dft_and_filterbank(cfg: AudioFrontendConfig) -> Tuple[np.ndarray, np.ndarra
     return dft, fb
 
 
-_DEVICE_CONSTANTS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+def mel_constants(cfg: AudioFrontendConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_dft_and_filterbank(cfg)`` on ``device``, made once per device."""
+    return tuple(device_constant((name, cfg), lambda _, i=i: _dft_and_filterbank(cfg)[i], device)
+                 for i, name in enumerate(("mel_dft", "mel_filterbank")))
 
 
 def log_mel_spectrogram(waveform: torch.Tensor,
                         cfg: AudioFrontendConfig | None = None) -> torch.Tensor:
     """[..., samples] -> [..., frames, mels] log-mel in dB (fp32)."""
     cfg = cfg or AudioFrontendConfig()
-    key = (cfg, waveform.device)
-    if key not in _DEVICE_CONSTANTS:
-        dft, fb = _dft_and_filterbank(cfg)
-        _DEVICE_CONSTANTS[key] = (torch.from_numpy(dft).to(waveform.device),
-                                  torch.from_numpy(fb).to(waveform.device))
-    dft, fb = _DEVICE_CONSTANTS[key]
+    dft, fb = mel_constants(cfg, waveform.device)
     x = waveform.float()
     pad = cfg.n_fft // 2
     lead = x.shape[:-1]

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from clap2diffusion_tpu_torch.core.config import HTSATConfig
+from clap2diffusion_tpu_torch.core.device import device_constant
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,14 +76,8 @@ def bicubic_resize_matrix(in_len: int, out_len: int, a: float = -0.75) -> np.nda
     return mat.astype(np.float32)
 
 
-_CONSTANTS = {}
-
-
 def _constant(fn, args, device) -> torch.Tensor:
-    key = (fn.__name__, args, device)
-    if key not in _CONSTANTS:
-        _CONSTANTS[key] = torch.from_numpy(fn(*args)).to(device)
-    return _CONSTANTS[key]
+    return device_constant((fn.__name__, args), lambda _: fn(*args), device)
 
 
 class _Dense(nn.Module):

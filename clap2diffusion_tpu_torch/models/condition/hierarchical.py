@@ -19,11 +19,13 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from clap2diffusion_tpu_torch.core.config import ConditionConfig
+from clap2diffusion_tpu_torch.core.device import device_constant
 from clap2diffusion_tpu_torch.models.layers import dropout
 from clap2diffusion_tpu_torch.ops.attention import mha
 
@@ -96,8 +98,9 @@ class SoftHierarchicalDecomposition(nn.Module):
         ) * self.cfg.similarity_scale
         gate_logits = self.gating_head[2](F.gelu(self.gating_head[0](tokens)))
         logits = similarity + gate_logits.float()
-        temperature = torch.clamp(torch.as_tensor(temperature, dtype=torch.float32,
-                                                  device=logits.device), min=0.1)
+        if not isinstance(temperature, torch.Tensor):  # a fill on the device, no host copy
+            temperature = torch.full((), temperature, dtype=torch.float32, device=logits.device)
+        temperature = torch.clamp(temperature.float(), min=0.1)
         assignments = torch.softmax(logits / temperature, dim=-1)
         tokens = self.norm(self.cross_hierarchy_attn(tokens, deterministic, generator))
         return tokens, {"assignments": assignments.to(tokens.dtype), "temperature": temperature}
@@ -248,8 +251,10 @@ class HierarchicalAudioEncoder(nn.Module):
         tokens_77 = self.projector(tokens_10, deterministic, generator)
         if not return_all:
             return tokens_77
-        prior = torch.tensor(self.cfg.level_prior, dtype=torch.float32,
-                             device=audio_features.device)
+        level_prior = tuple(self.cfg.level_prior)
+        prior = device_constant(("level_prior", level_prior),
+                                lambda _: np.asarray(level_prior, np.float32),
+                                audio_features.device)
         return tokens_77, {
             "tokens_10": tokens_10,
             "tokens_77": tokens_77,

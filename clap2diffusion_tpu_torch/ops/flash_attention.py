@@ -53,7 +53,6 @@ launches: the delta pre-pass, then the dK/dV and dQ roles in one launch).
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import ctypes
 import os
@@ -61,7 +60,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from clap2diffusion_tpu_torch.ops import cuda_build
+from clap2diffusion_tpu_torch.ops import counters, cuda_build
 
 _SOURCE = "flash_attention.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
@@ -620,5 +619,4 @@ def packed_flash_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, 
 
 
 for _fn in (flash_attention, flash_attention_bwd, packed_flash_attention):
-    _fn.launches = 0
-    _fn.shapes = collections.Counter()
+    counters.kernel(_fn)

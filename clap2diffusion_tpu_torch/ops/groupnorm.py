@@ -42,14 +42,13 @@ have no backward kernel, so there is none to port.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import ctypes
 import functools
 
 import torch
 
-from clap2diffusion_tpu_torch.ops import cuda_build
+from clap2diffusion_tpu_torch.ops import counters, cuda_build
 
 SOURCE = "group_norm.cu"
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -257,5 +256,4 @@ def group_norm(x, scale, bias, groups: int = 32, eps: float = 1e-5) -> torch.Ten
 
 
 for _fn in (group_norm_silu, group_norm):
-    _fn.launches = 0
-    _fn.shapes = collections.Counter()
+    counters.kernel(_fn)

@@ -28,13 +28,16 @@ The weights are quantised once, not once per step: the JAX package
 quantises them at trace time and XLA hoists that out of the sampler's
 scan. ``QuantCache`` keeps a module's int8 weights and scales, keyed on the
 weight's identity, storage, ``_version`` and type, so that
-``load_state_dict``, a LoRA merge or a ``.to()`` quantises again.
+``load_state_dict``, a LoRA merge or a ``.to()`` quantises again. A
+captured request (``diffusion/program.py``) does not call ``QuantCache`` at
+replay: ``Programs`` sees the same weight changes and captures again, which
+quantises again.
 
 ``run_stage`` refuses ``C2D_INT8=1``: ``torch.round`` has no useful
 gradient. The UNet's sites are the JAX package's (``models/unet.py``).
 
 Counter: ``int8_gemm.calls`` counts the int8 products run (``_int_mm``
-calls).
+calls), in the registry of ``ops/counters.py``.
 """
 
 from __future__ import annotations
@@ -44,6 +47,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from clap2diffusion_tpu_torch.core.device import device_constant
+from clap2diffusion_tpu_torch.ops import counters
 
 
 def enabled() -> bool:
@@ -67,18 +73,12 @@ def conv_eligible(*widths: int) -> bool:
     return eligible(*widths) and os.environ.get("C2D_INT8_CONV", "1") != "0"
 
 
-_CONSTANTS: Dict[tuple, torch.Tensor] = {}
-
-
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
     """``a / b`` with the divisor as a tensor on a's device: a true
     division on the card too. The divisor is made once per device, by a
-    fill on the device (a copy from the host would synchronise)."""
-    key = (a.device, b)
-    if key not in _CONSTANTS:
-        with torch.inference_mode(False):  # usable outside inference mode too
-            _CONSTANTS[key] = torch.full((), b, dtype=torch.float32, device=a.device)
-    return a / _CONSTANTS[key]
+    fill on the device."""
+    return a / device_constant(
+        ("divisor", b), lambda dev: torch.full((), b, dtype=torch.float32, device=dev), a.device)
 
 
 def quantize_weight(w: torch.Tensor, out_axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -109,6 +109,7 @@ class _Counter:
 
 
 int8_gemm = _Counter()
+counters.register(int8_gemm, "calls", name="int8_gemm")
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

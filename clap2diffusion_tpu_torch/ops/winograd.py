@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from clap2diffusion_tpu_torch.core.device import device_constant
 from clap2diffusion_tpu_torch.ops import quant
 
 # F(2x2, 3x3) transform constants (Lavin & Gray, "Fast Algorithms for
@@ -82,7 +83,7 @@ def input_transform(x: torch.Tensor) -> torch.Tensor:
 def filter_transform(kernel: torch.Tensor) -> torch.Tensor:
     """U = G w G^T per (Cin, Cout) in fp32: [16, Cin, Cout] from an HWIO
     [3, 3, Cin, Cout] kernel."""
-    g = torch.from_numpy(_G).to(kernel.device)
+    g = device_constant("winograd_G", lambda _: _G, kernel.device)
     u = torch.einsum("ip,pqco,jq->ijco", g, kernel.float(), g)
     return u.reshape(16, kernel.shape[2], kernel.shape[3])
 

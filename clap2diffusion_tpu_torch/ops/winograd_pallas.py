@@ -30,7 +30,6 @@ the conv kernel and the (x shape, Cout, dtype) they ran on.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import ctypes
 import functools
@@ -38,7 +37,7 @@ from typing import Dict, Optional
 
 import torch
 
-from clap2diffusion_tpu_torch.ops import cuda_build
+from clap2diffusion_tpu_torch.ops import counters, cuda_build
 from clap2diffusion_tpu_torch.ops.winograd import (
     _AT,
     filter_transform,
@@ -300,5 +299,4 @@ def conv3x3_winograd_pallas(x: torch.Tensor, kernel: torch.Tensor,
     return winograd_conv_fwd(x, winograd_filter(kernel, x.dtype), bias)
 
 
-conv3x3_winograd_pallas.launches = 0
-conv3x3_winograd_pallas.shapes = collections.Counter()
+counters.kernel(conv3x3_winograd_pallas)

@@ -18,9 +18,15 @@ one ``{"diag": "bench", ...}`` line:
                      the JAX bench's ``restore_*``
   int8_wire,         whether ``C2D_INT8_WIRE=1``, and ``load_pipeline``'s
   wire_bytes         wire statistics then (None without it)
-  warmup_s           the first request (cuDNN plans, the allocator's pool)
+  warmup_s           the first request (cuDNN plans, the allocator's pool);
+                     on the card it runs the program once eagerly and
+                     captures it into a CUDA graph, then replays it
+                     (``diffusion/program.py``): ``capture_s`` of it, and
+                     ``capture_pool_bytes``, what it added to the
+                     graphs' shared memory pool
   ttfi_s             process start -> first image: the interpreter, torch,
-                     the builds, the weights and the warm-up
+                     the builds, the weights and the warm-up with its
+                     capture
   wall_p50_s, times  5 requests, seeds 0-4, on the host clock
                      (``generate`` returns the image fetched to the host)
   device_busy_s      one more request under ``torch.profiler``: its device
@@ -122,8 +128,11 @@ def run(cfg=None, device=None, steps: Optional[int] = None, iters: int = 5,
     img = request(0)
     diag["warmup_s"] = time.perf_counter() - t0
     diag["ttfi_s"] = B.process_age_s()
-    B.say(f"warmup (first image {img.shape}): {diag['warmup_s']:.3f} s; "
-          f"time to first image {diag['ttfi_s']:.1f} s")
+    captured = list(pipe.programs.captured.values())  # none on the CPU
+    diag["capture_s"] = captured[0].capture_s if captured else None
+    diag["capture_pool_bytes"] = captured[0].pool_bytes if captured else None
+    B.say(f"warmup (first image {img.shape}, capture {diag['capture_s']} s): "
+          f"{diag['warmup_s']:.3f} s; time to first image {diag['ttfi_s']:.1f} s")
 
     times, images = [], []
     for i in range(iters):

@@ -23,7 +23,12 @@ weights, inputs and whatever the process already holds) and
 ``peak_bytes`` (``torch.cuda.max_memory_allocated`` over the call after
 ``reset_peak_memory_stats``). The JAX tool's args + temp + out is XLA's
 plan for one program; ``peak_bytes`` is what PyTorch's allocator held at
-most while the program ran. Weights are random, drawn on the card from
+most while the program ran. The request's peak is its first call's, which
+runs the program once eagerly and captures it into a CUDA graph
+(``diffusion/program.py``); the row adds ``graph_pool_bytes`` (what the
+graphs' shared memory pool holds reserved from then on) and ``replay_peak_bytes``
+(a second request, one replay: the pool's bytes are reserved, not
+allocated, so they are not in it). Weights are random, drawn on the card from
 seed 0 (their values do not change the bytes). With ``--device cpu`` the
 modules are built on the meta device and only the bytes that can be
 counted are given: the peaks are null.
@@ -133,10 +138,16 @@ def request_row(cfg, dev: torch.device) -> dict:
     pipe = AudioToImagePipeline(cfg, seed=0, device=dev, dtype=torch.bfloat16)
     row["param_bytes"] = weight_bytes(
         [getattr(pipe, n) for n in CORE_TOWERS if getattr(pipe, n, None) is not None])
+
+    def request():
+        return pipe.generate(waveform=wav, text_ids=ids, num_steps=50, guidance_scale=7.5,
+                             seed=0)
+
     t0 = time.perf_counter()
-    row.update(measure(dev, lambda: pipe.generate(waveform=wav, text_ids=ids, num_steps=50,
-                                                  guidance_scale=7.5, seed=0)))
+    row.update(measure(dev, request))
     row["seconds"] = time.perf_counter() - t0
+    row["graph_pool_bytes"] = sum(c.pool_bytes for c in pipe.programs.captured.values())
+    row["replay_peak_bytes"] = measure(dev, request)["peak_bytes"]
     del pipe
     torch.cuda.empty_cache()
     return row

@@ -56,7 +56,7 @@ def _diff(a, b) -> float:
 def _frontend_matmuls(one: torch.Tensor, fe) -> dict:
     """The log-mel's two matmuls on equal rows at batch 1 and at batch 2:
     the windowed DFT of the frames, then the filterbank of the power."""
-    dft, fb = frontend._DEVICE_CONSTANTS[(fe, one.device)]
+    dft, fb = frontend.mel_constants(fe, one.device)
     pad = fe.n_fft // 2
     x = torch.nn.functional.pad(one[:, None], (pad, pad), mode="reflect")[:, 0]
     frames = x.unfold(-1, fe.n_fft, fe.hop_length)  # [1, F, n_fft]

@@ -7,7 +7,8 @@ warm-up request, then:
   1. times each stage of one request on the host clock, each ending in
      ``torch.cuda.synchronize()``: log-mel + CLAP tower, hierarchical
      conditioning, CLIP text, the DDIM loop (and so one step), VAE decode;
-  2. profiles one whole request with ``torch.profiler`` and sums the device
+  2. profiles one whole request (on the card one replay of its CUDA graph,
+     ``diffusion/program.py``) with ``torch.profiler`` and sums the device
      events of its chrome trace (kernels, memcpy, memset) by category; the
      device's idle share is 1 - kernel time / the unprofiled request's wall
      time (the profiler slows the host, not the kernels).
@@ -19,6 +20,7 @@ it passes through ``build/trace/`` and is deleted.
 from __future__ import annotations
 
 import argparse
+import collections
 import gzip
 import json
 import os
@@ -51,7 +53,8 @@ def _category(name: str) -> str:
 def summarise_trace(events) -> dict:
     """The device events of a chrome trace's ``traceEvents`` (kernels,
     memcpy, memset; durations in µs) summed by ``CATEGORIES``: launches,
-    busy seconds, seconds and launches by category, the top kernels."""
+    busy seconds, seconds and launches by category, the top kernels and
+    the events of each kernel name."""
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     by_cat, calls, kernels = {}, {}, {}
     for e in device:
@@ -61,7 +64,9 @@ def summarise_trace(events) -> dict:
         kernels[e["name"][:90]] = kernels.get(e["name"][:90], 0.0) + e["dur"] / 1e6
     return {"launches": len(device), "device_kernel_s": sum(by_cat.values()),
             "by_category_s": by_cat, "launches_by_category": calls,
-            "top_kernels": sorted(kernels.items(), key=lambda kv: -kv[1])[:12]}
+            "top_kernels": sorted(kernels.items(), key=lambda kv: -kv[1])[:12],
+            "calls_by_kernel": dict(collections.Counter(
+                e["name"][:90] for e in device if e.get("cat") == "kernel"))}
 
 
 def device_summary(prof, out_dir=None) -> dict:

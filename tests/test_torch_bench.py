@@ -270,3 +270,6 @@ def test_summarise_trace_sums_device_events_by_category():
                                                 "other": 10e-6})
     assert s["launches_by_category"] == {"flash_attention": 2, "groupnorm": 1, "other": 1}
     assert s["top_kernels"][0] == ("void flash_fwd_bf16<40>(...)", pytest.approx(200e-6))
+    assert s["calls_by_kernel"] == {"void flash_fwd_bf16<40>(...)": 1,
+                                    "void flash_fwd_bf16<80>(...)": 1,
+                                    "group_norm_fwd<bf16,bf16>": 1}

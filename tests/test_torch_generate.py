@@ -12,8 +12,9 @@ At ``tests/test_pipeline.py::tiny_config`` in fp32, from the same weights
   ``split`` into the VAE and img2img noise, ``fold_in(key, 0x5A)`` for the
   sampler, ``vmap(key)(seeds)`` per lane), held to the frozen image
   golden's bounds (mean |d| < 0.5, under 1% of pixels off by more than 2):
-  sonic, img2img, inpainting, euler_a, dpmpp_2m_karras, two-audio mixing
-  and per-lane seeds;
+  sonic, img2img, inpainting, euler_a, dpmpp_2m_karras, two-audio mixing,
+  per-lane seeds, dpmpp_2m, text only, PCM16, baseline and audio_tokens
+  (each through the port's device program, ``diffusion/program.py``);
 - every argument check of ``_dispatch_generate`` with the JAX tests'
   ``match=`` strings, the per-lane-seed and inpainting properties of
   ``tests/test_pipeline.py``, ``generate_stream``, the host-side loaders
@@ -116,6 +117,13 @@ REQUESTS = {
     "seeds": dict(waveform=_wav(7), text_ids=np.repeat(IDS, 2, 0), batch=2, seeds=[5, 7]),
     "seeds_euler_a": dict(waveform=_wav(8), text_ids=np.repeat(IDS, 2, 0), batch=2,
                           seeds=[5, 7], sampler="euler_a"),
+    # the rest of tests/test_torch_program.py's request kinds (hierarchical
+    # DDIM is tests/test_torch_pipeline.py's golden)
+    "dpmpp_2m": dict(waveform=_wav(9), text_ids=IDS, sampler="dpmpp_2m", seed=6),
+    "text_only": dict(text_ids=IDS, seed=7),
+    "pcm16": dict(waveform=(_wav(10) * 3e4).astype(np.int16), text_ids=IDS, seed=8),
+    "baseline": dict(waveform=_wav(11), text_ids=IDS, model_type="baseline", seed=9),
+    "audio_tokens": dict(waveform=_wav(12), text_ids=IDS, model_type="audio_tokens", seed=10),
 }
 
 
