@@ -22,7 +22,29 @@
                      switching every lane to its own seed's draws.
     GET  /healthz    -> 200 "ok"
     GET  /metrics    -> JSON {requests, errors, images, coalesce, latency_s:
-                       {p50, p90, max, count}} over a sliding window.
+                       {p50, p90, max, count}, stages: {<stage>: {p50, p90,
+                       count}}}, each over a sliding window of 512.
+
+The stages of a /generate request (``STAGES``, seconds; a stage the request
+did not pass is not counted): ``decode`` the audio and image decoding and
+the tokenising, before the coalescer; ``queue`` its wait in the coalescer's
+queue, from its arrival to its group's forming; ``window`` its group's
+window, from the worker's first wait on the group to its forming;
+``prepare`` the request's checks and host preparation (``_prepare``: the
+uploads and draws); ``replay`` the device program's run on the host (a
+CUDA-graph replay: the lock, the copies in, the replay and the output's
+clone); ``device.condition_audio``, ``device.text``, ``device.unet_loop``
+and ``device.vae`` the device program's stages, timed on the card (the
+dequantise, log-mel, HTSAT and conditioning; CLIP text; the sampler loop;
+the VAE decode and the uint8 cast); ``fetch`` the wait for the images'
+copy to the host; ``encode`` the image's encoding. A coalesced request
+reports its group's ``window``, ``prepare``, ``replay``, device stages and
+``fetch``. They are always measured (a few clock readings a request); while
+``utils/profiling.py`` records, each is also a span (``service.request``,
+``service.decode``, ``service.queue`` and ``service.encode`` under the
+request's id; ``service.window``, ``pipeline.prepare``, ``program.replay``,
+``pipeline.fetch`` and ``device.*`` under its dispatch's id, the window
+listing the group's requests).
 
 PNG answers go through the port's
 standard-library encoder (``utils/png.py``); ``format: "jpeg"`` and the
@@ -64,15 +86,22 @@ from typing import Optional
 
 import numpy as np
 
+from clap2diffusion_tpu_torch.utils import profiling
 from clap2diffusion_tpu_torch.utils.png import encode_png
+
+# the stages of a request that /metrics reports, in the order a request
+# passes them (see the module doc)
+STAGES = ("decode", "queue", "window", "prepare", "replay", "device.condition_audio",
+          "device.text", "device.unet_loop", "device.vae", "fetch", "encode")
+
 
 class _Pending:
     """One request parked in the coalescer's queue."""
 
     __slots__ = ("key", "wav", "text_ids", "uncond_ids", "seed", "event", "result", "error",
-                 "batch", "lane", "fetch_s")
+                 "batch", "lane", "request_id", "t_queued", "t_taken", "dispatch_id", "stages")
 
-    def __init__(self, key, wav, text_ids, uncond_ids, seed):
+    def __init__(self, key, wav, text_ids, uncond_ids, seed, request_id=None):
         self.key = key
         self.wav = wav
         self.text_ids = text_ids
@@ -83,7 +112,10 @@ class _Pending:
         self.error: Optional[BaseException] = None
         self.batch = 1
         self.lane = 0
-        self.fetch_s = 0.0
+        self.request_id = request_id
+        self.t_queued = self.t_taken = 0
+        self.dispatch_id = None
+        self.stages: dict = {}
 
 
 class RequestCoalescer:
@@ -111,20 +143,28 @@ class RequestCoalescer:
         self._fetch_thread = threading.Thread(target=self._fetcher, daemon=True)
         self._fetch_thread.start()
 
-    def submit(self, wav, text_ids, uncond_ids, params: dict) -> _Pending:
+    def submit(self, wav, text_ids, uncond_ids, params: dict,
+               request_id: Optional[int] = None) -> _Pending:
         """Park one request until its group's images are fetched; returns
         it with its ``result`` (the image), ``batch`` (the group's size),
-        ``lane`` (its place in the group) and ``fetch_s`` (the fetch's wait)."""
+        ``lane`` (its place in the group) and ``stages`` (seconds: its
+        ``queue``, the group's ``window`` and the group's dispatch's
+        stages, ``HostCopy.stages``, its ``fetch`` among them). Its wait in
+        the queue is span ``service.queue`` under ``request_id``."""
         key = (params["num_steps"], params["guidance_scale"], params["norm_target"],
                params["model_type"], params["sampler"], params["guidance_rescale"],
                wav is not None)
-        p = _Pending(key, wav, text_ids, uncond_ids, params["seed"])
+        p = _Pending(key, wav, text_ids, uncond_ids, params["seed"], request_id)
         with self._cv:
+            p.t_queued = profiling.now()
             self._queue.append(p)
             self._cv.notify_all()
         p.event.wait()
+        profiling.record("service.queue", p.t_queued, p.t_taken, id=request_id,
+                         parent=request_id, dispatch=p.dispatch_id)
         if p.error is not None:
             raise p.error
+        p.stages["queue"] = (p.t_taken - p.t_queued) / 1e9
         return p
 
     def _worker(self):
@@ -133,6 +173,7 @@ class RequestCoalescer:
                 while not self._queue:
                     self._cv.wait()
                 key = self._queue[0].key
+                t_open = profiling.now()
                 deadline = time.monotonic() + self.window
                 while True:
                     same = [p for p in self._queue if p.key == key]
@@ -141,9 +182,11 @@ class RequestCoalescer:
                         break
                     self._cv.wait(timeout=remaining)
                 group = same[: self.max_batch]
+                t_formed = profiling.now()
                 for p in group:
                     self._queue.remove(p)
-            self._run(group)
+                    p.t_taken = t_formed
+            self._run(group, t_open, t_formed)
 
     @staticmethod
     def padded(group: list) -> tuple:
@@ -159,7 +202,9 @@ class RequestCoalescer:
                 np.concatenate([p.text_ids for p in lanes]),
                 np.concatenate([p.uncond_ids for p in lanes]))
 
-    def _run(self, group: list):
+    def _run(self, group: list, t_open: int, t_formed: int):
+        """Dispatch a group formed by the window [t_open, t_formed] (span
+        ``service.window`` under the dispatch's id, listing its requests)."""
         svc = self.service
         try:
             m, seeds, wav, text_ids, uncond_ids = self.padded(group)
@@ -170,6 +215,10 @@ class RequestCoalescer:
                     num_steps=steps, guidance_scale=cfg, norm_target=norm,
                     model_type=model_type, seed=0, seeds=seeds, sampler=sampler,
                     guidance_rescale=rescale)
+            did = handle.dispatch_id
+            profiling.record("service.window", t_open, t_formed, id=did, parent=did,
+                             requests=[p.request_id for p in group])
+            handle.stages["window"] = (t_formed - t_open) / 1e9
             self._fetch_q.put((group, handle))
         except Exception as e:  # fail the group, keep serving
             for p in group:
@@ -180,11 +229,10 @@ class RequestCoalescer:
         while True:
             group, handle = self._fetch_q.get()
             try:
-                t0 = time.perf_counter()
                 imgs = handle.numpy()
-                fetch_s = time.perf_counter() - t0
                 for i, p in enumerate(group):
-                    p.result, p.batch, p.lane, p.fetch_s = imgs[i], len(group), i, fetch_s
+                    p.result, p.batch, p.lane = imgs[i], len(group), i
+                    p.dispatch_id, p.stages = handle.dispatch_id, dict(handle.stages)
                 self.service.record_coalesce(len(group))
             except Exception as e:
                 for p in group:
@@ -216,6 +264,7 @@ class InferenceService:
         self._errors = 0
         self._images = 0
         self._latencies: list = []  # sliding window, seconds
+        self._stages: dict = {name: [] for name in STAGES}  # sliding windows, seconds
         self._coalesced_batches = 0
         self._coalesced_images = 0
         self.coalescer: Optional[RequestCoalescer] = (
@@ -231,6 +280,17 @@ class InferenceService:
                 self._latencies.append(latency_s)
                 if len(self._latencies) > 512:
                     self._latencies = self._latencies[-512:]
+
+    def record_stages(self, stages: dict):
+        """One request's stage times (seconds; see ``STAGES``) into their
+        sliding windows."""
+        with self._mlock:
+            for name, v in stages.items():
+                window = self._stages.get(name)
+                if window is not None:
+                    window.append(v)
+                    if len(window) > 512:
+                        del window[0]
 
     def record_coalesce(self, group_size: int):
         with self._mlock:
@@ -251,12 +311,20 @@ class InferenceService:
                     if self._coalesced_batches else 0.0,
                 },
                 "latency_s": {},
+                "stages": {},
             }
             if lats:
                 n = len(lats)
                 out["latency_s"] = {"p50": round(lats[n // 2], 4),
                                     "p90": round(lats[min(n - 1, int(n * 0.9))], 4),
                                     "max": round(lats[-1], 4), "count": n}
+            for name, window in self._stages.items():
+                if window:
+                    v = sorted(window)
+                    n = len(v)
+                    out["stages"][name] = {"p50": round(v[n // 2], 6),
+                                           "p90": round(v[min(n - 1, int(n * 0.9))], 6),
+                                           "count": n}
             return out
 
     def _decode_audio(self, req: dict, key: str = "audio_b64"):
@@ -329,12 +397,28 @@ class InferenceService:
         return handle.numpy(), time.perf_counter() - t0
 
     def generate(self, req: dict) -> dict:
+        """One /generate request; its stages are spans under a fresh
+        request id, its whole ``service.request``, and their times go to
+        the sliding windows of /metrics (see the module doc)."""
+        rid = profiling.new_id()
+        t0 = profiling.now()
+        try:
+            return self._generate(req, rid, t0)
+        finally:
+            profiling.record("service.request", t0, profiling.now(), id=rid)
+
+    def _generate(self, req: dict, rid: int, t0: int) -> dict:
         # every host-side decode runs outside the lock, which covers only
         # the enqueue; the fetch waits outside it for this request's copy
         wav = self._decode_audio(req)
         params = self._knobs(req)
         fmt, quality = req.get("format", "png"), int(req.get("quality", 92))
         best_of = int(req.get("best_of", 1))
+        text_ids = self.tok(req.get("text", ""))
+        uncond_ids = self.tok(str(req.get("negative", "")))
+        coalesce = best_of <= 1 and self.coalescer is not None and not any(
+            req.get(k) for k in ("init_image_b64", "mask_image_b64", "audio2_b64"))
+        extra = {}
         if best_of > 1:
             # one batched request of candidates and the on-device select;
             # only the winner and the scores are fetched. The coalescer's
@@ -342,37 +426,47 @@ class InferenceService:
             if any(req.get(k) for k in ("init_image_b64", "mask_image_b64")):
                 raise ValueError("best_of is unsupported with init/mask images (candidates "
                                  "need per-lane seeds)")
-            kwargs = dict(waveform=wav, text_ids=self.tok(req.get("text", "")),
-                          uncond_ids=self.tok(str(req.get("negative", ""))),
-                          waveform2=self._decode_audio(req, "audio2_b64"),
-                          audio_mix=float(req.get("audio_mix", 0.5)), **params)
+            extra = dict(waveform2=self._decode_audio(req, "audio2_b64"),
+                         audio_mix=float(req.get("audio_mix", 0.5)))
+        elif not coalesce:
+            extra = dict(
+                init_image=self._decode_init_image(req), strength=float(req.get("strength", 0.8)),
+                mask_image=self._decode_init_image(req, "mask_image_b64", mask=True),
+                waveform2=self._decode_audio(req, "audio2_b64"),
+                audio_mix=float(req.get("audio_mix", 0.5)))
+        t_decoded = profiling.now()
+        profiling.record("service.decode", t0, t_decoded, id=rid, parent=rid)
+        stages = {"decode": (t_decoded - t0) / 1e9}
+        if best_of > 1:
             with self._lock:
-                best, scores = self.pipe._dispatch_best_of(best_of, **kwargs)
+                best, scores = self.pipe._dispatch_best_of(
+                    best_of, waveform=wav, text_ids=text_ids, uncond_ids=uncond_ids,
+                    **extra, **params)
             img, fetch_s = self._fetch(best)
-            return {"image_b64": self._img_b64(img, fmt, quality),
-                    "info": {**self._info(params), "best_of": best_of,
-                             "clip_scores": [round(float(v), 4) for v in scores.numpy()],
-                             "fetch_wait_s": fetch_s}}
-        if self.coalescer is not None and not any(
-                req.get(k) for k in ("init_image_b64", "mask_image_b64", "audio2_b64")):
-            p = self.coalescer.submit(
-                wav, self.tok(req.get("text", "")), self.tok(str(req.get("negative", ""))),
-                params)
-            return {"image_b64": self._img_b64(p.result, fmt, quality),
-                    "info": {**self._info(params), "coalesced_batch": p.batch,
-                             "coalesced_lane": p.lane, "fetch_wait_s": p.fetch_s}}
-        kwargs = dict(
-            waveform=wav, text_ids=self.tok(req.get("text", "")),
-            uncond_ids=self.tok(str(req.get("negative", ""))),
-            init_image=self._decode_init_image(req), strength=float(req.get("strength", 0.8)),
-            mask_image=self._decode_init_image(req, "mask_image_b64", mask=True),
-            waveform2=self._decode_audio(req, "audio2_b64"),
-            audio_mix=float(req.get("audio_mix", 0.5)), **params)
-        with self._lock:
-            handle = self.pipe._dispatch_generate(**kwargs)
-        imgs, fetch_s = self._fetch(handle)
-        return {"image_b64": self._img_b64(imgs[0], fmt, quality),
-                "info": {**self._info(params), "fetch_wait_s": fetch_s}}
+            info = {**self._info(params), "best_of": best_of,
+                    "clip_scores": [round(float(v), 4) for v in scores.numpy()],
+                    "fetch_wait_s": fetch_s}
+        elif coalesce:
+            p = self.coalescer.submit(wav, text_ids, uncond_ids, params, request_id=rid)
+            img = p.result
+            stages.update(p.stages)
+            info = {**self._info(params), "coalesced_batch": p.batch,
+                    "coalesced_lane": p.lane, "fetch_wait_s": p.stages["fetch"]}
+        else:
+            with self._lock:
+                handle = self.pipe._dispatch_generate(
+                    waveform=wav, text_ids=text_ids, uncond_ids=uncond_ids, **extra, **params)
+            imgs, fetch_s = self._fetch(handle)
+            img = imgs[0]
+            stages.update(handle.stages)
+            info = {**self._info(params), "fetch_wait_s": fetch_s}
+        t_enc = profiling.now()
+        image_b64 = self._img_b64(img, fmt, quality)
+        t_done = profiling.now()
+        profiling.record("service.encode", t_enc, t_done, id=rid, parent=rid)
+        stages["encode"] = (t_done - t_enc) / 1e9
+        self.record_stages(stages)
+        return {"image_b64": image_b64, "info": info}
 
     def generate_batch(self, req: dict) -> dict:
         """A request group as one batched request: the scalar knobs shared;

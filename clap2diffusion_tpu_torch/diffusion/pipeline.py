@@ -43,11 +43,14 @@ its static signature (``diffusion/program.py``: ``Signature``,
 ``Programs``); the CPU, and a pipeline under a model-parallel group, run it
 eagerly (ROADMAP known delta 23).
 
-Fetching: ``_dispatch_generate`` returns a handle whose ``numpy()`` gives
-the images. On CUDA it is a ``HostCopy``: the copy to pinned host memory
-is enqueued right after the request's last kernel, with an event behind
-it, so a fetch waits for its own request and not for whatever was
-enqueued after it. On the CPU the handle is the image tensor itself.
+Fetching: ``_dispatch_generate`` returns a ``HostCopy``, whose ``numpy()``
+gives the images. On CUDA the copy to pinned host memory is enqueued right
+after the request's last kernel, with an event behind it, so a fetch waits
+for its own request and not for whatever was enqueued after it. The handle
+also carries the request's stage times: its host preparation and replay,
+its fetch, and its device program's stages, stamped on the device
+(``ops/stage_clock.py``) and copied beside the images, each kept as a span
+while recording (``utils/profiling.py``).
 
 Weights I/O: ``init_params`` draws a random pipeline, ``save_pipeline``
 writes the port's checkpoint format (one ``<tower>.safetensors`` per tower
@@ -120,7 +123,9 @@ from clap2diffusion_tpu_torch.models.condition.hierarchical import (
 from clap2diffusion_tpu_torch.models.layers import DataSlice, draw
 from clap2diffusion_tpu_torch.models.unet import UNet2DCondition
 from clap2diffusion_tpu_torch.models.vae import AutoencoderKL
+from clap2diffusion_tpu_torch.ops import stage_clock
 from clap2diffusion_tpu_torch.ops.token_norm import rescale_to_norm
+from clap2diffusion_tpu_torch.utils import profiling
 from clap2diffusion_tpu_torch.utils.audio_io import peak_normalize, read_audio, read_wav_pcm16
 from clap2diffusion_tpu_torch.utils.safetensors_io import load_safetensors, save_safetensors
 
@@ -325,22 +330,55 @@ def load_pipeline(cfg: Config, path: str, dtype: Optional[torch.dtype] = None,
 
 
 class HostCopy:
-    """Images on their way to the host: the copy into pinned host memory,
-    enqueued on the current stream right after the images' last kernel,
-    and the CUDA event recorded behind it. ``numpy()`` waits on that event
-    alone, so it never waits for work enqueued after the request."""
+    """A request's images on their way to the host, with its stage times.
 
-    def __init__(self, img: torch.Tensor):
+    On CUDA: the copy into pinned host memory, enqueued on the current
+    stream right after the images' last kernel, the program's stage stamps
+    (``ops/stage_clock.py``) copied beside them, and the CUDA event
+    recorded behind both. ``numpy()`` waits on that event alone, so it
+    never waits for work enqueued after the request. On the CPU the images
+    are already there. ``dispatch_id`` names the request's spans
+    (``utils/profiling.py``: ``pipeline.prepare`` and ``program.replay``,
+    kept at dispatch; ``pipeline.fetch`` and the ``device.*`` stages, kept
+    by the first ``numpy()``); ``stages`` holds their seconds, the device
+    stages' and the fetch's once fetched."""
+
+    def __init__(self, img: torch.Tensor, stamps: Optional[torch.Tensor] = None,
+                 dispatch_id: Optional[int] = None, stages: Optional[Dict[str, float]] = None):
         self.device_images = img  # the images on the card (best-of scores them there)
+        self.dispatch_id = dispatch_id
+        self.stages = dict(stages or {})
+        self._fetched = False
+        if not img.is_cuda:
+            self.host, self.host_stamps, self.event = img, stamps, None
+            return
         self.host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
         self.host.copy_(img, non_blocking=True)
+        self.host_stamps = None
+        if stamps is not None:
+            self.host_stamps = torch.empty(stamps.shape, dtype=stamps.dtype, pin_memory=True)
+            self.host_stamps.copy_(stamps, non_blocking=True)
         self.event = torch.cuda.Event()
         self.event.record(torch.cuda.current_stream(img.device))
 
     def numpy(self) -> np.ndarray:
-        self.event.synchronize()
+        if self._fetched:
+            return self.host.numpy()
+        t0 = profiling.now()
+        if self.event is not None:
+            self.event.synchronize()
+        t1 = profiling.now()
+        self._fetched = True
+        did = self.dispatch_id
+        profiling.record("pipeline.fetch", t0, t1, id=did, parent=did)
+        self.stages["fetch"] = (t1 - t0) / 1e9
+        if self.host_stamps is not None:
+            stamps = self.host_stamps.numpy()
+            for i, name in enumerate(stage_clock.STAGES):
+                profiling.record(name, int(stamps[i]), int(stamps[i + 1]), id=did, parent=did,
+                                 clock="device")
+            self.stages.update(stage_clock.durations(stamps))
         return self.host.numpy()
-
 
 
 def _dequantize_pcm16(waveform: torch.Tensor) -> torch.Tensor:
@@ -687,7 +725,12 @@ class AudioToImagePipeline:
         log-mel -> HTSAT -> conditioning -> CLIP text -> the sampler loop
         with folded CFG -> VAE decode -> uint8 [B, H, W, 3]. It reads only
         ``x`` (``_prepare``'s tensors) and ``sig``'s statics: no copy from
-        the host, no read of a device value on the host."""
+        the host, no read of a device value on the host. It marks its start
+        and the end of the audio conditioning, CLIP text, the sampler loop
+        and the decode on the current stage clock (``ops/stage_clock.py``;
+        ``_staged``)."""
+        mark = stage_clock.mark
+        mark(0)
         clap_emb = None
         if "waveform" in x:
             wf = _dequantize_pcm16(x["waveform"])
@@ -704,9 +747,11 @@ class AudioToImagePipeline:
                     torch.linalg.vector_norm(mixed, dim=-1, keepdim=True), min=1e-8)
             if sig.batch > 1 and clap_emb.shape[0] == 1:
                 clap_emb = clap_emb.expand(sig.batch, -1)
-        ehs_cond, ehs_uncond = self.clip_text(x["ids"]).chunk(2, dim=0)
         tokens77, routed = ((None, None) if clap_emb is None else self._condition(
             clap_emb, sig.model_type, x["norm_target"], x["temperature"]))
+        mark(1)
+        ehs_cond, ehs_uncond = self.clip_text(x["ids"]).chunk(2, dim=0)
+        mark(2)
         if sig.model_type == "audio_tokens" and tokens77 is not None:
             ehs_cond = tokens77.to(ehs_cond.dtype)
 
@@ -744,22 +789,42 @@ class AudioToImagePipeline:
             latents = x["latents"].to(self.compute_dtype)
         latents = sample(eps_fn, self.schedule, latents, sig.num_steps, timesteps=ts,
                          blend_fn=blend_fn, rng=rng)
+        mark(3)
         img = self.vae.decode_latent(latents)
-        return torch.clamp((img + 1.0) * 127.5, 0, 255).to(torch.uint8)
+        img = torch.clamp((img + 1.0) * 127.5, 0, 255).to(torch.uint8)
+        mark(4)
+        return img
+
+    def _staged(self, sig: Signature, x: Inputs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``_program`` with a stage clock of its own: (images, stamps)."""
+        with stage_clock.timing(stage_clock.StageClock(x["ids"].device)) as clock:
+            return self._program(sig, x), clock.stamps
 
     @torch.inference_mode()
-    def _generate(self, draws: RequestDraws, wav, wav2, text_ids, uncond_ids,
-                  **statics) -> torch.Tensor:
+    def _generate(self, draws: RequestDraws, wav, wav2, text_ids, uncond_ids, *, t0: int,
+                  **statics) -> HostCopy:
         """The JAX program ``_generate_jit``: host preparation, then the
         device program, on CUDA as one replay of the request's signature's
         CUDA graph (captured at the signature's first request;
         ``diffusion/program.py``), on the CPU and under a model-parallel
-        group eagerly. Returns uint8 images [B, H, W, 3] on the device,
-        unsynchronised."""
+        group eagerly. Returns the handle of the uint8 images [B, H, W, 3]
+        on the device, unsynchronised. ``t0`` is when the request's checks
+        began (``profiling.now()``): they and the preparation are its
+        ``pipeline.prepare`` span, the program's run on the host (a replay:
+        the lock, the copies in, the replay and the output's clone) its
+        ``program.replay``."""
         sig, x = self._prepare(draws, wav, wav2, text_ids, uncond_ids, **statics)
+        t1 = profiling.now()
         if not self._capture:
-            return self._program(sig, x)
-        return self.programs.run(sig, x, functools.partial(self._program, sig))
+            img, stamps = self._staged(sig, x)
+        else:
+            img, stamps = self.programs.run(sig, x, functools.partial(self._staged, sig))
+        t2 = profiling.now()
+        did = profiling.new_id()
+        profiling.record("pipeline.prepare", t0, t1, id=did, parent=did)
+        profiling.record("program.replay", t1, t2, id=did, parent=did)
+        return HostCopy(img, stamps, did, {"prepare": (t1 - t0) / 1e9,
+                                           "replay": (t2 - t1) / 1e9})
 
     def generate(self, *args, **kw) -> np.ndarray:
         """Generate images [B, H, W, 3] uint8 (blocking); the arguments of
@@ -791,9 +856,8 @@ class AudioToImagePipeline:
         draws: Optional[RequestDraws] = None,
     ):
         """Check and prepare the arguments, then enqueue the request;
-        returns, without synchronising, the handle whose ``numpy()`` gives
-        the uint8 images [B, H, W, 3] (see the module doc: a ``HostCopy`` on
-        CUDA, the tensor itself on the CPU).
+        returns, without synchronising, the ``HostCopy`` whose ``numpy()``
+        gives the uint8 images [B, H, W, 3] (see the module doc).
 
         ``seeds`` (int [batch]) draws each lane's initial latents and
         sampler noise from its own seed (not with ``init_image``).
@@ -805,6 +869,7 @@ class AudioToImagePipeline:
         embeddings (``audio_mix`` is the first one's weight). ``draws``
         replaces ``self.draws(seed, seeds)`` for this request
         (``generate_sharded`` passes a data rank's rows of them)."""
+        t0 = profiling.now()
         sch = self.cfg.diffusion.scheduler
         sampler = sampler or sch.sampler
         if sampler not in SAMPLERS:
@@ -861,18 +926,14 @@ class AudioToImagePipeline:
             if mask_image is not None:
                 mask = _latent_mask(mask_image, size)
 
-        img = self._generate(
+        return self._generate(
             draws or self.draws(seed, seeds), wav, wav2, np.asarray(text_ids, np.int32),
-            np.asarray(uncond_ids, np.int32), num_steps=num_steps,
+            np.asarray(uncond_ids, np.int32), t0=t0, num_steps=num_steps,
             guidance_scale=float(guidance_scale), model_type=model_type, batch=batch,
             norm_target=float(norm_target), temperature=float(temperature), sampler=sampler,
             init_steps=init_steps, init=init, audio_mix=float(np.float32(audio_mix)),
             mask=mask, guidance_rescale=float(guidance_rescale),
             per_lane_seeds=seeds is not None)
-        if not img.is_cuda:
-            return img
-        with torch.inference_mode():
-            return HostCopy(img)
 
     def generate_stream(self, requests, *, depth: int = 2, **shared):
         """Pipelined generation over an iterable of per-image ``generate``
@@ -971,8 +1032,7 @@ class AudioToImagePipeline:
         handle = self._dispatch_generate(
             waveform=waveform, text_ids=np.repeat(text_ids, n, axis=0), uncond_ids=uncond_ids,
             batch=n, seed=seed, seeds=seeds, waveform2=waveform2, **knobs)
-        imgs = handle if isinstance(handle, torch.Tensor) else handle.device_images
-        best, scores = self._select_best(imgs, text_ids)
+        best, scores = self._select_best(handle.device_images, text_ids)
         if not best.is_cuda:
             return best, scores
         with torch.inference_mode():

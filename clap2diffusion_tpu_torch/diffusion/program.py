@@ -32,10 +32,11 @@ bounded however many signatures the clients choose: their inputs and
 outputs, and each instantiated graph, which CUDA keeps outside
 PyTorch's allocator (``device_bytes``; ~3 MB per 512² step on an H100). A
 request copies its inputs into the graph's static buffers, replays the
-graph and copies the output into a fresh tensor, so that a request still
-in flight (``generate_stream``) or scored on the card (best-of) never sees
-the next replay's bits. A capture error fails the request: nothing runs
-eagerly in its place.
+graph and copies the output into fresh tensors (the images, and the
+stage stamps ``ops/stage_clock.py``'s marks wrote), so that a request
+still in flight (``generate_stream``) or scored on the card (best-of)
+never sees the next replay's bits. A capture error fails the request:
+nothing runs eagerly in its place.
 
 The graphs read the weights by address, and the int8 weights ``QuantCache``
 made from them at capture. Every request checks the storage and version
@@ -139,8 +140,9 @@ def _state(tensors: List[torch.Tensor]) -> tuple:
 
 
 class Captured:
-    """One signature's CUDA graph: its static input buffers, its output
-    and what capturing it cost (``capture_s``: warm-up, capture and
+    """One signature's CUDA graph: its static input buffers, its output (a
+    tensor or a tuple of tensors, each cloned at every replay) and what
+    capturing it cost (``capture_s``: warm-up, capture and
     instantiation; ``pool_bytes``: what its capture added to the memory
     the card's allocator reserves, the shared pool's growth;
     ``device_bytes``: the card's memory it took in all, the instantiated
@@ -174,12 +176,14 @@ class Captured:
         self.capture_s = time.perf_counter() - t0
         self.replays = 0
 
-    def __call__(self, inputs: Inputs) -> torch.Tensor:
+    def __call__(self, inputs: Inputs):
         for k, v in inputs.items():
             self.inputs[k].copy_(v)
         self.graph.replay()
         self.replays += 1
         _add(self.launches)
+        if isinstance(self.output, tuple):  # the images and the stage stamps
+            return tuple(t.clone() for t in self.output)
         return self.output.clone()
 
 

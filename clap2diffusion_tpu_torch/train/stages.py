@@ -58,6 +58,7 @@ from clap2diffusion_tpu_torch.parallel.sharding import all_mean
 from clap2diffusion_tpu_torch.train import losses as L
 from clap2diffusion_tpu_torch.train.lora import lora_trainable, merge_lora
 from clap2diffusion_tpu_torch.train.optim import Optimizer, ema_update
+from clap2diffusion_tpu_torch.utils import profiling
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -288,15 +289,22 @@ def train_step(stage: Stage, state: TrainState, batch: Dict[str, torch.Tensor],
     ``grad_accum`` micro-steps), EMA, step + 1. Returns the step's scalar
     metrics as device tensors (no host sync). On a ``mesh`` with a data
     axis the gradients and the metrics are averaged over it
-    (``parallel/sharding.py``): the mean over the global batch."""
-    total, losses = stage.loss(state, batch, generator)
+    (``parallel/sharding.py``): the mean over the global batch. Its phases
+    are spans under the micro-step's count (``utils/profiling.py``):
+    ``train.loss``, ``train.backward`` (with the gradients' mean over the
+    group) and ``train.update`` (the optimizer and the EMA)."""
+    step = state.step
+    with profiling.span("train.loss", id=step, parent=step):
+        total, losses = stage.loss(state, batch, generator)
     leaves = state.trainable_leaves()
-    grads = grads_of(total, leaves)
     group = None if mesh is None else mesh.group("data")
-    all_mean(grads.values(), group)
-    state.opt.step(grads)
-    if state.ema is not None:
-        ema_update(state.ema, leaves, stage.scfg.ema_decay)
+    with profiling.span("train.backward", id=step, parent=step):
+        grads = grads_of(total, leaves)
+        all_mean(grads.values(), group)
+    with profiling.span("train.update", id=step, parent=step):
+        state.opt.step(grads)
+        if state.ema is not None:
+            ema_update(state.ema, leaves, stage.scfg.ema_decay)
     state.step += 1
     metrics = {k: v.detach() for k, v in losses.items() if torch.is_tensor(v) and v.dim() == 0}
     if group is not None:

@@ -81,6 +81,7 @@ from clap2diffusion_tpu_torch.train.stages import (
     TrainState,
     train_step,
 )
+from clap2diffusion_tpu_torch.utils import profiling
 from clap2diffusion_tpu_torch.utils.logging import MetricLogger
 
 
@@ -121,16 +122,19 @@ class EmbeddingFrontend:
         return ctx, ctx.mean(dim=1)
 
     @torch.no_grad()
-    def embed_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        dev = self.device
-        latent = torch.as_tensor(np.asarray(batch["latent"], np.float32), device=dev)
-        cached = self._load_cached(batch.get("audio_id", []))
-        if cached is not None:
-            return {**{k: torch.as_tensor(v, device=dev) for k, v in cached.items()},
-                    "latent": latent}
-        ctx, emb = self.encode_text(self.tokenizer(batch["caption"]))
-        return {"clap": self.encode_audio(batch["audio"]), "latent": latent,
-                "text_ctx": ctx, "text_emb": emb}
+    def embed_batch(self, batch: Dict, step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """A batch's step inputs on the device (span ``train.feed`` under
+        micro-step ``step``, ``utils/profiling.py``)."""
+        with profiling.span("train.feed", id=step, parent=step):
+            dev = self.device
+            latent = torch.as_tensor(np.asarray(batch["latent"], np.float32), device=dev)
+            cached = self._load_cached(batch.get("audio_id", []))
+            if cached is not None:
+                return {**{k: torch.as_tensor(v, device=dev) for k, v in cached.items()},
+                        "latent": latent}
+            ctx, emb = self.encode_text(self.tokenizer(batch["caption"]))
+            return {"clap": self.encode_audio(batch["audio"]), "latent": latent,
+                    "text_ctx": ctx, "text_emb": emb}
 
     def _load_cached(self, ids) -> Optional[Dict[str, np.ndarray]]:
         if not self.emb_dir or not ids:
@@ -402,7 +406,7 @@ def run_stage(cfg: Config, stage: int, params: Dict, data_root: Optional[str] = 
     try:
         while done < steps:
             for batch in loader.epoch(epoch):
-                emb = frontend.embed_batch(batch)
+                emb = frontend.embed_batch(batch, step=done)
                 metrics = step_fn(st, state, {k: emb[k] for k in keys}, generator)
                 done += 1
                 if (done - start) % spc == 0 or done >= steps:  # a JAX call boundary

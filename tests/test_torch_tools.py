@@ -5,7 +5,7 @@ package's where it has the same one.
   ``tests/test_lifecycle_tool.py``, run against the port's function.
 - ``utils/profiling.py``: ``Timer``'s summary keys (JAX's), ``measure`` and
   ``time_fn``; ``device_trace`` writes a Chrome trace that holds a
-  ``trace_annotation``.
+  ``span`` on the trace's clock.
 - ``tools/precompute_embeddings.py`` against the JAX tool on one fixture
   set with the same towers (``from_flax``): ``clap`` and ``text_emb``
   within the slice tests' fp32 tolerance (1e-4), ``text_ctx`` within one
@@ -24,6 +24,7 @@ package's where it has the same one.
 import importlib.util
 import json
 import os
+import time
 
 import jax
 import numpy as np
@@ -77,13 +78,21 @@ def test_timer_summary_keys_and_fences():
 
 def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     with profiling.device_trace(str(tmp_path / "trace")):
-        with profiling.trace_annotation("c2d_stage"):
+        with profiling.span("c2d_stage", id=5):
+            time.sleep(0.002)
             torch.randn(32, 32) @ torch.randn(32, 32)
+            time.sleep(0.002)
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
     with open(tmp_path / "trace" / files[0]) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "c2d_stage" for e in events)
+    stage = [e for e in events if e.get("name") == "c2d_stage"]
+    assert len(stage) == 1 and stage[0]["args"]["id"] == 5
+    # on the trace's clock: the product it enclosed lies inside it (2 ms
+    # from either end)
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    assert mm and stage[0]["ts"] <= mm[0]["ts"]
+    assert mm[0]["ts"] + mm[0]["dur"] <= stage[0]["ts"] + stage[0]["dur"]
 
 
 # -- precompute_embeddings ---------------------------------------------------------
