@@ -21,6 +21,11 @@ Phases (each raises on failure, so the exit code is non-zero):
      the host's pace (``kernel_ms``, back-to-back calls) and on the device's
      (``device_ms``, one call's share of a CUDA graph of 20, which also shows
      that the kernel can be captured).
+  2a. The warp-specialised flash forward (head dims up to 80) at CFG batch 16
+     ([16,8,4096,40], [16,8,1024,80], timed), ragged tiles ((1000, 777) and
+     (130, 65) keys) and the training shapes ([4,8,4096,40], [4,8,1024,80])
+     with its log-sum-exp against the plain one; as phase 2, twice for the
+     same bits, strided [B,S,H*D] views, the plan against the library's.
   2b. A census stage-2 micro-step (batch 4) and stage-3 micro-step (batch 2)
      record the training path's shapes; the flash-attention backward kernel
      is held against its plain version at each (bf16 and fp32) and at ragged
@@ -72,7 +77,9 @@ Phases (each raises on failure, so the exit code is non-zero):
      (hierarchical, 50-step DDIM, CFG 7.5, 512x512, bf16 weights drawn from
      a seeded torch.Generator, a 10 s 48 kHz synthetic waveform, hash
      tokenizer ids). Counts are reset just before and read just after: each
-     request must launch flash 751 times and group_norm_silu 2,279 times.
+     request must launch flash 751 times (500 on the warp-specialised
+     kernel, 250 on the narrow one, 1 on the wide one) and group_norm_silu
+     2,279 times.
      On the card every request is one replay of a CUDA graph of its device
      program, captured at the first request of its signature
      (``diffusion/program.py``; the counts are the graph's), in this phase
@@ -275,6 +282,7 @@ the device JSON.
 """
 
 import base64
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -349,6 +357,17 @@ TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 BWD_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 REQUESTS = 3
 FLASH_PER_IMAGE = 751
+# A request's flash launches by design: each of the 50 CFG UNet forwards
+# runs 5 self-attentions at d = 40 and 5 at d = 80 on the warp-specialised
+# kernel, 5 at d = 160 on the narrow one; the VAE decoder one at d = 512.
+FLASH_DESIGNS_PER_IMAGE = {"ws": 500, "narrow": 250, "wide": 1}
+# Phase 2a: the warp-specialised forward at the shapes phase 2's census (CFG
+# batch 2) does not reach: CFG batch 16 (timed), ragged tiles, the training
+# forward with its log-sum-exp.
+WS_TIMED = [(16, 8, 4096, 40), (16, 8, 1024, 80)]
+WS_RAGGED = [((1, 2, 1000, 40), (1, 2, 777, 40)), ((1, 2, 130, 40), (1, 2, 65, 40)),
+             ((2, 3, 130, 80), (2, 3, 65, 80))]
+WS_LSE = [(4, 8, 4096, 40), (4, 8, 1024, 80)]
 GN_SILU_PER_IMAGE = 2279
 # Under C2D_PACKED_FLASH=1 the 5 self-attentions at 4096 tokens (8 heads of
 # d=40, pack 3) of each of the 50 CFG UNet forwards take the packed kernel.
@@ -525,6 +544,30 @@ def flash_case(qs, ks, dtype, gen, timed=True):
     return row
 
 
+def ws_phase(rows, gen):
+    """Phase 2a: the warp-specialised forward (instances up to 80) against
+    the plain version at CFG batch 16 (timed), ragged tiles and the
+    training shapes, where the forward also writes the log-sum-exp (each
+    call twice for the same bits, strided views, the plan against the
+    library's: ``flash_case``)."""
+    out = []
+    for qs in WS_TIMED:
+        out.append(flash_case(qs, qs, torch.bfloat16, gen))
+        rows[(qs, qs, str(torch.bfloat16))] = out[-1]
+    for qs, ks in WS_RAGGED:
+        out.append(flash_case(qs, ks, torch.bfloat16, gen, timed=False))
+    lse_errs = []
+    for qs in WS_LSE:
+        flash_case(qs, qs, torch.bfloat16, gen, timed=False)
+        q, k, v = (torch.randn(qs, device="cuda", generator=gen).bfloat16() for _ in range(3))
+        lse_errs.append(lse_case(q, k, v, qs[-1] ** -0.5, f"flash lse {list(qs)}")[2])
+    if any(fa.flash_design(r["q"][-1]) != "ws" for r in out):
+        raise AssertionError("phase 2a: a shape up to d = 80 left the warp-specialised kernel")
+    log({"phase": "ws_forward", "ok": True, "max_abs_err": max(r["max_abs_err"] for r in out),
+         "lse_err": max(lse_errs),
+         "device_ms": {str(r["q"]): r["device_ms"] for r in out if "device_ms" in r}})
+
+
 def gn_case(kind, shape, dtype, groups, eps, gen, timed=True):
     silu = kind == "group_norm_silu"
     x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
@@ -676,6 +719,7 @@ def reset_counts():
     for fn in KERNEL_FNS:
         fn.launches = 0
         fn.shapes.clear()
+    fa.flash_attention.designs.clear()
 
 
 def counts():
@@ -1185,7 +1229,7 @@ def all_counts():
     """Every count of the registry but the shapes: the kernels' launches
     and the int8 products."""
     return {name.split(".")[0]: getattr(o, a) for name, (o, a) in counters.COUNTERS.items()
-            if a != "shapes"}
+            if a not in ("shapes", "designs")}
 
 
 def replays(pipe):
@@ -3165,6 +3209,7 @@ def main() -> int:
                 rows[kind][(shape, str(dtype), groups, eps)] = r
                 errs[kind] = max(errs[kind], r["max_abs_err"])
     log({"phase": "kernels_vs_plain", "ok": True})
+    ws_phase(rows["flash_attention_fwd"], torch.Generator(device="cuda").manual_seed(3))
 
     # -- 2b. training census, then the backward kernel vs its plain version --
     train_cfg = C.Config()
@@ -3351,6 +3396,7 @@ def main() -> int:
     reset_counts()
     for i in range(REQUESTS):
         before = (fa.flash_attention.launches, gn.group_norm_silu.launches)
+        designs_before = collections.Counter(fa.flash_attention.designs)
         t0 = time.perf_counter()
         img = pipe.generate(waveform=wav, text_ids=text, uncond_ids=uncond,
                             model_type="hierarchical", num_steps=50, guidance_scale=7.5,
@@ -3368,9 +3414,13 @@ def main() -> int:
         if req_counts != (FLASH_PER_IMAGE, GN_SILU_PER_IMAGE):
             raise AssertionError(f"request {i}: launches (flash, gn_silu) = {req_counts}, "
                                  f"want ({FLASH_PER_IMAGE}, {GN_SILU_PER_IMAGE})")
+        designs = dict(fa.flash_attention.designs - designs_before)
+        if designs != FLASH_DESIGNS_PER_IMAGE:
+            raise AssertionError(f"request {i}: flash launches by design {designs}, "
+                                 f"want {FLASH_DESIGNS_PER_IMAGE}")
         log({"phase": "request", "i": i, "seconds": times[-1], "image_mean": float(img.mean()),
              "image_std": float(img.std()), "flash_launches": req_counts[0],
-             "group_norm_silu_launches": req_counts[1]})
+             "flash_designs": designs, "group_norm_silu_launches": req_counts[1]})
     launches = {"flash_attention_fwd": fa.flash_attention.launches,
                 "group_norm_silu": gn.group_norm_silu.launches,
                 "group_norm": gn.group_norm.launches}

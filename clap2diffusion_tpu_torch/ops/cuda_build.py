@@ -51,7 +51,7 @@ def _short_name(mangled: str) -> str:
             # a repeated type is mangled as a substitution (S1_): the one before it
             types.append(types[-1] if tok.startswith("S") else _TYPE_NAMES[tok])
         return f"{m.group(1)}<{','.join(types)}>"
-    m = re.search(r"((?:flash_(?:fwd(?:_wide)?|bwd(?:_dq|_dkdv)?)|packed_fwd"
+    m = re.search(r"((?:flash_(?:fwd(?:_wide|_ws)?|bwd(?:_dq|_dkdv)?)|packed_fwd"
                   r"|wino(?:_gemm|_input|_reduce)?)_(?:bf16|f32)|bwd_delta|qreg_probe)", mangled)
     if m is None:
         return mangled

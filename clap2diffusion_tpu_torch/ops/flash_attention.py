@@ -6,11 +6,15 @@ The forward replaces ``clap2diffusion_tpu/ops/flash_attention.py::_fwd_kernel``
 (launched by ``_flash_bwd`` through the custom VJP). Both kernels are CUDA
 C++ for sm_90a in ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``,
 built with nvcc at first use and called through ctypes; their header
-comments give the design and what bounds each. The bf16 forward runs on the
-tile pipeline of ``csrc/attention_core.cuh`` with one head a block: 192
-query rows on three warpgroups over a 3-stage K/V ring for d <= 160, and 64
-rows on four warpgroups that split the keys of S and the columns of O for
-the VAE's d = 512 (``flash_launch_plan`` is its launch plan). The bf16
+comments give the design and what bounds each. The bf16 forward has three
+designs, chosen by the head dim alone (``flash_design``): up to instance 80
+a warp-specialised kernel, a TMA producer warpgroup and three (two at 80)
+consumer warpgroups of 64 query rows over a 2-stage ring of 128-key tiles,
+which overlap the softmax with the products; up to 160 the tile pipeline of
+``csrc/attention_core.cuh`` with one head a block, 192 query rows on three
+warpgroups over a 3-stage ring of 64-key tiles; and 64 rows on four
+warpgroups that split the keys of S and the columns of O for the VAE's
+d = 512 (``flash_launch_plan`` is the launch plan). The bf16
 backward runs on the same tile pipeline: a dK/dV role with 192 (128 above
 d = 80) keys a block, K and V as A tiles and Q, dO streamed, and a dQ role
 like the forward with K, V streamed, both roles in one launch after a
@@ -44,7 +48,9 @@ the packed route under the JAX ``_flash_fwd`` rule (``packed_eligible``):
 ``C2D_PACKED_FLASH=1``, read per call, and a CUDA tensor.
 
 Counters: ``flash_attention.launches`` / ``.shapes`` count per-head forward
-launches and the (q shape, k shape, dtype) they ran on;
+launches and the (q shape, k shape, dtype) they ran on, ``.designs`` the
+launches by kernel (``"ws"``, ``"narrow"``, ``"wide"``, and ``"f32"`` for
+the fp32 kernel);
 ``packed_flash_attention.launches`` / ``.shapes`` the packed forward's
 launches and (q shape as [B, H, S, D], pack, dtype); ``flash_attention_bwd``
 the same for the backward (one count per backward call, which is two kernel
@@ -53,6 +59,7 @@ launches: the delta pre-pass, then the dK/dV and dQ roles in one launch).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import os
@@ -183,10 +190,11 @@ def build() -> None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """The kernels read 16-byte vectors: last dim contiguous, other strides
-    a multiple of 8 elements, 16-byte aligned base. Copy when not."""
+    a multiple of 8 elements (not 0 where the dim has more than one row: a
+    tensor map refuses it), 16-byte aligned base. Copy when not."""
     ok = (
         t.stride(-1) == 1
-        and all(s % 8 == 0 for s in t.stride()[:-1])
+        and all(s % 8 == 0 and (s or n == 1) for s, n in zip(t.stride()[:-1], t.shape[:-1]))
         and t.data_ptr() % 16 == 0
     )
     return t if ok else t.clone(memory_format=torch.contiguous_format)
@@ -246,6 +254,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale
     _raise(lib.c2d_cuda_error_string, err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.shapes[(tuple(q.shape), tuple(k.shape), str(q.dtype))] += 1
+    flash_attention.designs[flash_design(d) if q.dtype == torch.bfloat16 else "f32"] += 1
     return out, lse
 
 
@@ -396,6 +405,24 @@ def packed_kernel_plan(b: int, h: int, s: int, d: int, pack: int) -> dict:
 # the per-head bf16 kernel's instances (csrc/flash_attention.cu: instance_d)
 FLASH_INSTANCES = (16, 32, 40, 48, 64, 80, 96, 128, 160)
 WIDE_D, WIDE_WARPGROUPS = 512, 4
+# the warp-specialised design (csrc/flash_attention.cu: WS_*, ws_*): instances
+# up to WS_MAX_D, a producer warpgroup and consumer warpgroups of 64 rows over
+# a ring of 128-key tiles, the registers split by setmaxnreg
+WS_MAX_D, WS_BK, WS_STAGES, WS_PRODUCER_REGS = 80, 128, 2, 24
+
+
+def ws_consumers(inst: int) -> int:
+    """Consumer warpgroups of the warp-specialised kernel: three up to
+    instance 64, two at 80 (a third's registers would spill)."""
+    return 3 if inst <= 64 else 2
+
+
+def ws_consumer_regs(inst: int) -> int:
+    """Registers a consumer thread holds after ``setmaxnreg``."""
+    return 160 if inst <= 64 else 240
+
+
+DESIGNS = ("ws", "narrow", "wide")  # c2d_flash_plan's design codes, in order
 
 
 def flash_instance(d: int) -> int:
@@ -405,38 +432,65 @@ def flash_instance(d: int) -> int:
     return next((i for i in FLASH_INSTANCES if d <= i), WIDE_D)
 
 
+def flash_design(d: int) -> str:
+    """The bf16 kernel that runs head dim ``d``: ``"ws"`` (warp-specialised)
+    up to instance 80, ``"narrow"`` up to 160, ``"wide"`` above."""
+    inst = flash_instance(d)
+    return "ws" if inst <= WS_MAX_D else "narrow" if inst < WIDE_D else "wide"
+
+
+def _ws_smem_bytes(inst: int) -> int:
+    """Q (64 rows a consumer) and the K and V rings (128 keys a tile), each
+    row 128-byte swizzled blocks of 64 columns, then the mbarriers, and 1 KB
+    to align the tiles to the swizzle's atoms."""
+    atoms = -(-inst // 64)
+    return ((64 * ws_consumers(inst) + 2 * WS_STAGES * WS_BK) * 128 * atoms
+            + 8 * (1 + 4 * WS_STAGES) + 1024)
+
+
 def flash_launch_plan(b: int, h: int, sq: int, sk: int, d: int) -> dict:
     """How the bf16 per-head forward is launched on q [b, h, sq, d] and k, v
-    [b, h, sk, d]. Up to d = 160: one block per (192-query tile, batch·head),
-    three warpgroups, one per 64-row sub-tile, each holding its sub-tile's
-    fp32 accumulator (instance d / 2 registers a thread), every 64-key K/V
-    tile loaded once for the three into a ring of 3 stages. Above 160 (the
-    VAE's 512): one block per (64-query tile, batch·head), four warpgroups
-    that each compute S for 16 keys of a tile and O for 128 of the 512
-    columns (64 registers a thread), one K and one V buffer.
+    [b, h, sk, d]. ``ws`` (instances up to 80): one block per (64·c-query
+    tile, batch·head), a producer warpgroup that copies 128-key K and V
+    tiles by TMA into a ring of 2 stages and c consumer warpgroups
+    (``ws_consumers``: 3 up to 64, 2 at 80), one per 64-row sub-tile, each
+    holding its sub-tile's fp32 accumulator (instance d / 2 registers a
+    thread), one block an SM. ``narrow`` (96 to 160): one block per
+    (192-query tile, batch·head), three warpgroups, one per 64-row
+    sub-tile, every 64-key K/V tile loaded once for the three into a ring of
+    3 stages. ``wide`` (the VAE's 512): one block per (64-query tile,
+    batch·head), four warpgroups that each compute S for 16 keys of a tile
+    and O for 128 of the 512 columns (64 registers a thread), one K and one
+    V buffer.
 
     The source owns the geometry and launches by it alone; this is its
     mirror for planning and records without a card, and ``flash_kernel_plan``
     is what the built library reports, which ``chip_smoke.py`` holds this
     against at every shape it runs."""
     inst = flash_instance(d)
-    if inst == WIDE_D:
-        rows, sub_tiles, warpgroups, stages, o_regs = PACKED_BQ, 1, WIDE_WARPGROUPS, 2, 64
+    design = flash_design(d)
+    if design == "ws":
+        consumers = sub_tiles = ws_consumers(inst)
+        rows, warpgroups = consumers * PACKED_BQ, 1 + consumers
+        bk, stages, o_regs, smem = WS_BK, WS_STAGES, inst // 2, _ws_smem_bytes(inst)
+    elif design == "wide":
+        rows, sub_tiles, warpgroups, consumers = PACKED_BQ, 1, WIDE_WARPGROUPS, WIDE_WARPGROUPS
+        bk, stages, o_regs = PACKED_BK, 2, 64
         qbs = WIDE_D // 8 * 128
         smem = (PACKED_BQ // 8 * qbs + 2 * (PACKED_BK // 8) * (WIDE_D // 8 + 1) * 128
                 + PACKED_BQ // 8 * (PACKED_BK // 8 * 128) + WIDE_WARPGROUPS * PACKED_BQ * 4)
     else:
-        rows, sub_tiles, warpgroups, stages = PACKED_QT * PACKED_BQ, PACKED_QT, PACKED_QT, \
-            PACKED_STAGES
-        o_regs = inst // 2
-        smem = _packed_smem_bytes(1, inst)
+        rows, sub_tiles, warpgroups, consumers = PACKED_QT * PACKED_BQ, PACKED_QT, PACKED_QT, \
+            PACKED_QT
+        bk, stages, o_regs, smem = PACKED_BK, PACKED_STAGES, inst // 2, \
+            _packed_smem_bytes(1, inst)
     q_tiles = -(-sq // rows)
     blocks = q_tiles * b * h
     return {
-        "instance_d": inst, "grid": (q_tiles, b * h), "blocks": blocks,
-        "warpgroups": warpgroups, "threads": 128 * warpgroups, "query_rows": rows,
-        "sub_tiles": sub_tiles, "bk": PACKED_BK, "stages": stages,
-        "key_tiles": -(-sk // PACKED_BK), "smem_bytes": smem, "o_regs": o_regs,
+        "design": design, "instance_d": inst, "grid": (q_tiles, b * h), "blocks": blocks,
+        "warpgroups": warpgroups, "consumers": consumers, "threads": 128 * warpgroups,
+        "query_rows": rows, "sub_tiles": sub_tiles, "bk": bk, "stages": stages,
+        "key_tiles": -(-sk // bk), "smem_bytes": smem, "o_regs": o_regs,
         "waves": blocks / SM_COUNT,  # blocks per SM over the launch
     }
 
@@ -445,14 +499,15 @@ def flash_kernel_plan(b: int, h: int, sq: int, sk: int, d: int) -> dict:
     """The bf16 launch geometry as the built library reports it (host code
     of ``csrc/flash_attention.cu``, no launch), under ``flash_launch_plan``'s
     keys."""
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 12)()
     lib = _lib()
     _raise(lib.c2d_cuda_error_string,
            lib.c2d_flash_plan(b, h, sq, sk, d, ctypes.cast(out, ctypes.c_void_p)), "flash_plan")
-    inst, gx, gy, threads, smem, rows, sub_tiles, bk, stages, o_regs = out
-    return {"instance_d": inst, "grid": (gx, gy), "blocks": gx * gy, "threads": threads,
-            "smem_bytes": smem, "query_rows": rows, "sub_tiles": sub_tiles, "bk": bk,
-            "stages": stages, "key_tiles": -(-sk // bk), "o_regs": o_regs}
+    inst, gx, gy, threads, smem, rows, sub_tiles, bk, stages, o_regs, design, consumers = out
+    return {"design": DESIGNS[design], "instance_d": inst, "grid": (gx, gy),
+            "blocks": gx * gy, "threads": threads, "smem_bytes": smem, "query_rows": rows,
+            "sub_tiles": sub_tiles, "bk": bk, "stages": stages, "key_tiles": -(-sk // bk),
+            "o_regs": o_regs, "consumers": consumers}
 
 
 # the bf16 backward's instances (csrc/flash_attention_bwd.cu: instance_d)
@@ -620,3 +675,5 @@ def packed_flash_nhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, 
 
 for _fn in (flash_attention, flash_attention_bwd, packed_flash_attention):
     counters.kernel(_fn)
+flash_attention.designs = collections.Counter()
+counters.register(flash_attention, "designs")

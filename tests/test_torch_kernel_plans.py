@@ -7,7 +7,9 @@ only on the card, where ``chip_smoke.py`` (phases 2, 2c and 2d) holds them
 and these plans against their plain versions and the built libraries.
 """
 
+import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -264,6 +266,15 @@ def test_ptxas_summary_names_the_redesigned_kernels():
     assert got[7]["registers"] == 126 and got[8]["registers"] == 64
 
 
+@pytest.mark.parametrize("d", [16, 40, 80])
+def test_ptxas_summary_names_the_warp_specialised_forward(d):
+    log = (f"ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__a1b2c3d4_18_flash_"
+           f"attention_cu_0123abcd17flash_fwd_ws_bf16ILi{d}EEEvNS_6WsArgsE' for 'sm_90a'\n"
+           "ptxas info    : Used 168 registers, used 3 barriers\n")
+    assert cuda_build.ptxas_summary(log) == [{"kernel": f"flash_fwd_ws_bf16<{d}>",
+                                              "registers": 168}]
+
+
 # GroupNorm(+SiLU) at the serving and training census: the SD v1.5 UNet's
 # (H = W, C) at 32 groups (C/G from 10 to 80), the VAE decoder's (C/G from
 # 4 to 16) at batch 1 and 2 (per-lane seeds), and the two slabs only the
@@ -349,27 +360,123 @@ def test_flash_launch_plan(d, sq, sk):
     assert plan["o_regs"] <= 128 and plan["smem_bytes"] <= pfa.MAX_SMEM
     rows = plan["query_rows"]
     assert plan["grid"] == (-(-sq // rows), b * h) and plan["blocks"] == plan["grid"][0] * b * h
-    assert plan["key_tiles"] == -(-sk // 64) and plan["bk"] == 64
+    assert plan["key_tiles"] == -(-sk // plan["bk"])
     assert plan["threads"] == 128 * plan["warpgroups"]
-    if d <= 160:
+    assert plan["waves"] == plan["blocks"] / 132
+    if d <= 80:
+        # a producer warpgroup and consumers of 64 rows (three up to 64, two
+        # at 80) over a 2-stage ring of 128-key tiles, each row 128-byte
+        # swizzled blocks of 64 columns; 9 mbarriers; 1 KB to align
+        cons, stages = (3 if inst <= 64 else 2), 2
+        assert plan["design"] == "ws" and rows == 64 * cons
+        assert plan["consumers"] == plan["sub_tiles"] == cons
+        assert plan["warpgroups"] == 1 + cons
+        assert plan["bk"] == 128 and plan["stages"] == stages and plan["o_regs"] == inst // 2
+        block = -(-inst // 64) * 128  # bytes of a row
+        assert plan["smem_bytes"] == (rows + 2 * stages * 128) * block + 8 * (1 + 4 * stages) + 1024
+    elif d <= 160:
         # three 64-row sub-tiles, one warpgroup each, on one 3-stage K/V ring
-        assert rows == 192 and plan["sub_tiles"] == 3 == plan["warpgroups"]
-        assert plan["o_regs"] == inst // 2 and plan["stages"] == 3
+        assert plan["design"] == "narrow" and rows == 192
+        assert plan["sub_tiles"] == 3 == plan["warpgroups"] == plan["consumers"]
+        assert plan["bk"] == 64 and plan["o_regs"] == inst // 2 and plan["stages"] == 3
         q_tile = 192 * (-(-inst // 16) * 16) * 2
         kv_tile = 64 * (inst * 2 + 16)
         assert plan["smem_bytes"] == q_tile + 3 * 2 * kv_tile
     else:
         # 64 rows, four warpgroups over the keys of S and the columns of O
-        assert rows == 64 and plan["warpgroups"] == 4 and plan["o_regs"] == 64
+        assert plan["design"] == "wide" and rows == 64 and plan["bk"] == 64
+        assert plan["warpgroups"] == 4 == plan["consumers"] and plan["o_regs"] == 64
         assert plan["smem_bytes"] == 64 * 512 * 2 + 2 * 64 * (512 * 2 + 16) + 64 * 64 * 2 + 4 * 64 * 4
 
 
 def test_flash_launch_plan_at_the_serving_shapes():
-    assert pfa.flash_launch_plan(2, 8, 4096, 4096, 40)["blocks"] == 22 * 16
-    assert pfa.flash_launch_plan(2, 8, 4096, 4096, 40)["o_regs"] == 20
-    assert pfa.flash_launch_plan(2, 8, 1024, 1024, 80)["o_regs"] == 40
-    assert pfa.flash_launch_plan(2, 8, 256, 256, 160)["o_regs"] == 80
+    b1 = pfa.flash_launch_plan(2, 8, 4096, 4096, 40)
+    assert b1["design"] == "ws" and b1["blocks"] == 22 * 16 and b1["o_regs"] == 20
+    assert b1["consumers"] == 3 and b1["threads"] == 512
+    assert b1["smem_bytes"] == 91_208 and b1["key_tiles"] == 32 and b1["stages"] == 2
+    assert b1["waves"] == pytest.approx(2.667, abs=1e-3)
+    b8 = pfa.flash_launch_plan(16, 8, 4096, 4096, 40)
+    assert b8["blocks"] == 22 * 128 and b8["waves"] == pytest.approx(21.33, abs=1e-2)
+    mid = pfa.flash_launch_plan(2, 8, 1024, 1024, 80)
+    assert mid["design"] == "ws" and mid["blocks"] == 8 * 16 and mid["o_regs"] == 40
+    assert mid["consumers"] == 2 and mid["threads"] == 384 and mid["stages"] == 2
+    assert mid["smem_bytes"] == 164_936 and mid["waves"] < 1
+    assert pfa.flash_launch_plan(16, 8, 1024, 1024, 80)["blocks"] == 8 * 128
+    low = pfa.flash_launch_plan(2, 8, 256, 256, 160)
+    assert low["design"] == "narrow" and low["o_regs"] == 80 and low["blocks"] == 2 * 16
     vae = pfa.flash_launch_plan(1, 1, 4096, 4096, 512)
     assert vae["blocks"] == 64 and vae["smem_bytes"] == 207_872 and vae["stages"] == 2
+    assert vae["design"] == "wide"
     assert [pfa.flash_instance(d) for d in (8, 24, 40, 56, 72, 88, 136, 168)] == [
         16, 32, 40, 64, 80, 96, 160, 512]
+
+
+@pytest.mark.parametrize("d", FLASH_DS)
+def test_flash_design_by_head_dim(d):
+    """The dispatch table by instance: warp-specialised up to 80, the narrow
+    kernel from 96 to 160, the wide one for the VAE's 512; no option."""
+    want = {16: "ws", 32: "ws", 40: "ws", 48: "ws", 64: "ws", 80: "ws", 96: "narrow",
+            128: "narrow", 160: "narrow", 512: "wide"}[pfa.flash_instance(d)]
+    assert pfa.flash_design(d) == want == pfa.flash_launch_plan(1, 1, 64, 64, d)["design"]
+
+
+@pytest.mark.parametrize("d", [8, 40, 80, 96, 160, 512])
+@pytest.mark.parametrize("sq", [1, 64, 65, 128, 130, 1000, 1024, 4096])
+def test_flash_plan_gives_every_query_row_to_one_consumer(d, sq):
+    """Block x's consumer c owns rows x*rows + 64c .. + 64: each row of Sq
+    exactly once, and only the last block holds rows past Sq."""
+    plan = pfa.flash_launch_plan(2, 3, sq, 77, d)
+    owned = [x * plan["query_rows"] + 64 * c + r for x in range(plan["grid"][0])
+             for c in range(plan["sub_tiles"]) for r in range(64)]
+    assert plan["sub_tiles"] * 64 == plan["query_rows"]
+    assert sorted(r for r in owned if r < sq) == list(range(sq))
+    assert max(owned) < sq + plan["query_rows"]
+
+
+@pytest.mark.parametrize("d", [16, 32, 40, 48, 64, 80])
+def test_ws_plan_fits_the_sm(d):
+    """Shared memory under 227 KB, and the setmaxnreg split within the
+    65,536 registers the block is launched with: the registers the producer
+    gives up cover what the consumers take, and a consumer holds S (64), O
+    (d/2) and P (32 packed) in its share."""
+    plan = pfa.flash_launch_plan(16, 8, 4096, 4096, d)
+    inst = plan["instance_d"]
+    assert plan["smem_bytes"] <= pfa.MAX_SMEM == 232_448
+    launch = 65_536 // plan["threads"] // 8 * 8  # registers a thread at launch
+    regs = pfa.ws_consumer_regs(inst)
+    for n in (pfa.WS_PRODUCER_REGS, regs):
+        assert n % 8 == 0 and 24 <= n <= 256
+    assert 128 * (launch - pfa.WS_PRODUCER_REGS) >= 128 * plan["consumers"] * (regs - launch)
+    assert 128 * pfa.WS_PRODUCER_REGS + 128 * plan["consumers"] * regs <= 65_536
+    assert 64 + plan["o_regs"] + 32 <= regs - 24
+
+
+def _forward_kernels():
+    """The forward kernels' names in csrc/flash_attention.cu."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "flash_attention.cu"), encoding="utf-8") as f:
+        src = f.read()
+    bounds = r"__launch_bounds__\((?:[^()]|\([^()]*(?:\([^()]*\))?[^()]*\))*\)\s*"
+    return re.findall(rf"__global__ void (?:{bounds})?(\w+)\(", src)
+
+
+def _metric_patterns():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "perfbench", "metrics", "attn_fwd_roofline.b8.py")
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    return next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign) and node.targets[0].id == "PATTERNS")
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd_ws_bf16", "flash_fwd_bf16", "flash_fwd_wide_bf16",
+                                    "flash_fwd_f32"])
+def test_forward_kernel_names_match_the_roofline_metric_and_the_breakdown(kernel):
+    """The attention-forward roofline finds the kernels' time by name
+    (``perfbench/metrics/attn_fwd_roofline.*.py``'s PATTERNS, the
+    breakdown's ``flash_fwd`` category in ``harness/reduce.py``): every
+    forward kernel of the source keeps ``flash_fwd`` in its name."""
+    from perfbench.harness import reduce
+    assert kernel in _forward_kernels()
+    assert any(re.search(p, kernel) for p in _metric_patterns())
+    assert ("flash_attention", ("flash_fwd",)) in reduce.CATEGORIES
+    assert "flash_fwd" in kernel

@@ -344,7 +344,7 @@ def test_every_kernel_counter_is_registered():
     registered = {(id(o), a) for o, a in prog.COUNTERS.values()}
     for module in modules:
         for value in vars(module).values():
-            for attr in ("launches", "shapes", "calls"):
+            for attr in ("launches", "shapes", "calls", "designs"):
                 if hasattr(value, attr) and not isinstance(value, type):
                     assert (id(value), attr) in registered, (module.__name__, value, attr)
 
