@@ -36,8 +36,8 @@ from perfbench.harness import common  # noqa: E402
 def serving_control(cell, seed, jobs, device):
     from perfbench.harness import check
 
-    refs = check.reference_images(cell["config"], seed, jobs, device)
-    ctrl = check.reference_images(cell["config"], seed, jobs, device, precision="fp8")
+    refs = check.reference_images(cell, seed, jobs, device)
+    ctrl = check.reference_images(cell, seed, jobs, device, precision="fp8")
     gaps = [check.image_gaps(np.floor(c).astype(np.uint8), r) for c, r in zip(ctrl, refs)]
     return {"image_mae_levels": max(g["mae"] for g in gaps), "gaps": gaps}
 
@@ -47,10 +47,10 @@ def training_control(cell, seed, device):
 
     spec = cell["traffic"]
     ns = common.namespace(cell["config"]["model"])
-    feed = TR.Feed(spec, ns, seed)
+    feed = TR.Feed(spec, common.family(cell).latent_shape(ns), seed)
     k = spec["checked_steps"]
-    ref = TR.reference_run(cell["config"], seed, feed, k, device)
-    ctrl = TR.reference_run(cell["config"], seed, feed, k, device, precision="fp8")
+    ref = TR.reference_run(cell, seed, feed, k, device)
+    ctrl = TR.reference_run(cell, seed, feed, k, device, precision="fp8")
 
     class Half(TR.Feed):
         def batch(self, i):
@@ -61,7 +61,7 @@ def training_control(cell, seed, device):
 
     half = Half.__new__(Half)
     half.__dict__.update(feed.__dict__)
-    fault = TR.reference_run(cell["config"], seed, half, k, device)
+    fault = TR.reference_run(cell, seed, half, k, device)
     return {"control": TR.readings(ctrl, ref), "half_batch": TR.readings(fault, ref)}
 
 
@@ -84,8 +84,8 @@ def main(argv=None) -> int:
     for j in range(a.seeds):
         seed = a.first_seed + 7919 * j
 
-        def spy(cfg, s, jobs, dev, j=j, seed=seed):
-            out = serving(cfg, s, jobs, dev)
+        def spy(c, s, jobs, dev, j=j, seed=seed):
+            out = serving(c, s, jobs, dev)
             if j < a.control:
                 r = serving_control(cell, seed, jobs, dev)
                 control.append(r["image_mae_levels"])

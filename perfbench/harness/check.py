@@ -1,8 +1,9 @@
 """How ``correct`` is decided: the program's answers held against the plain
-reference (``perfbench/reference``), float32 with TF32 off, on the same
-weights (drawn again from the seed) and the same inputs, after the program
-has been freed. Each compared number has its limit in the configuration's
-file, under ``limits``; the readings they were set from are in PERF.md.
+reference of the cell's model family (``perfbench/families``), float32
+with TF32 off, on the same weights (drawn again from the seed) and the
+same inputs, after the program has been freed. Each compared number has
+its limit in the configuration's file, under ``limits``; the readings
+they were set from are in PERF.md.
 
 Serving: for each sampled image, the reference recomputes the request's
 conditioning over the request's whole batch (Norm-60 spans the batch), its
@@ -22,7 +23,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from perfbench.harness.common import log, namespace
+from perfbench.harness.common import family, log, namespace
 from perfbench.reference import plain
 
 
@@ -42,32 +43,32 @@ def fp32(precision=None):
          plain.PRECISION) = saved
 
 
-def lane_latents(seed: int, lat: int, channels: int, device) -> torch.Tensor:
-    """A lane's initial latents [1, lat, lat, channels] from its own seed."""
+def lane_latents(seed: int, shape, device) -> torch.Tensor:
+    """A lane's initial latents [1, *shape] from its own seed."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    return torch.randn((lat, lat, channels), generator=gen, device=device,
-                       dtype=torch.float32)[None]
+    return torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32)[None]
 
 
-def reference_images(cfg: Dict, seed: int, jobs: List[Dict], device,
+def reference_images(cell: Dict, seed: int, jobs: List[Dict], device,
                      precision=None) -> List[np.ndarray]:
-    """The reference's float image of each job (see the module doc)."""
-    from perfbench.harness.serve import TOWERS
+    """The reference's float image of each job (see the module doc), by
+    the cell's model family."""
     from perfbench.harness.weights import draw_weights
-    from perfbench.reference.pipeline import Reference
 
+    cfg = cell["config"]
+    fam = family(cell)
     ns, serve = namespace(cfg["model"]), cfg["serve"]
     with fp32(precision):
-        w = draw_weights(ns, seed, TOWERS, torch.bfloat16 if serve["dtype"] == "bfloat16"
-                         else torch.float32, device)
-        ref = Reference(ns, w, device, TOWERS)
+        w = draw_weights(fam, ns, seed, fam.SERVE_TOWERS,
+                         torch.bfloat16 if serve["dtype"] == "bfloat16" else torch.float32,
+                         device)
+        ref = fam.Reference(ns, w, device, fam.SERVE_TOWERS)
         del w
-        lat = ns.diffusion.image_size // 8
         out = []
         for job in jobs:
             routed = ref.routed(job["waveforms"], serve["temperature"], serve["norm_target"])
             routed = {k: v[job["lane"]:job["lane"] + 1] for k, v in routed.items()}
-            x = lane_latents(job["seed"], lat, ns.diffusion.vae.latent_channels, device)
+            x = lane_latents(job["seed"], fam.latent_shape(ns), device)
             img = ref.image(x, job["text_ids"], job["uncond_ids"], routed, serve["steps"],
                             serve["guidance_scale"])
             out.append(img[0].cpu().numpy())
@@ -86,12 +87,12 @@ def image_gaps(served: np.ndarray, ref: np.ndarray) -> Dict[str, float]:
             "max": float(d.max())}
 
 
-def serving(cfg: Dict, seed: int, jobs: List[Dict], device) -> List[Dict]:
-    limit = cfg["limits"]["image_mae_levels"]
+def serving(cell: Dict, seed: int, jobs: List[Dict], device) -> List[Dict]:
+    limit = cell["config"]["limits"]["image_mae_levels"]
     if not jobs:
         return [{"name": "images_checked", "value": 0, "limit": 1, "ok": False}]
     t0 = time.perf_counter()
-    refs = reference_images(cfg, seed, jobs, device)
+    refs = reference_images(cell, seed, jobs, device)
     gaps = [image_gaps(np.asarray(j["image"]), r) for j, r in zip(jobs, refs)]
     log(phase="check", images=len(jobs), gaps=gaps, reference_s=time.perf_counter() - t0)
     worst = max(g["mae"] for g in gaps)

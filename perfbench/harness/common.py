@@ -1,5 +1,6 @@
-"""What every cell shares: finding a cell's files by name, the run's
-arguments, the device's description, the JAX guard and the result line."""
+"""What every cell shares: finding a cell's files and its model family by
+name, the run's arguments, the device's description, the JAX guard and
+the result line."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ import argparse
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import types
@@ -17,6 +19,7 @@ BENCH = os.path.join(ROOT, "perfbench")
 # top-level module names that may never be loaded in a run, compared whole
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "clap2diffusion_tpu")
 RESULT_KEYS = ("correct", "attempted", "failed", "metrics", "device")
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -63,6 +66,29 @@ def metric_reader(name: str, root: str = ROOT):
     under ``root``, loaded by path (the name may hold dots)."""
     path = os.path.join(root, "perfbench", "metrics", name + ".py")
     spec = importlib.util.spec_from_file_location("perfbench_metric_" + name.replace(".", "_"),
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family(cell: dict):
+    """The model family of a cell's configuration: the module
+    ``perfbench/families/<family>.py`` under the cell's root, loaded by path,
+    where ``<family>`` is the configuration file's ``"family"`` key. It holds
+    what the harness knows of one model: its towers and their salts
+    (``SERVE_TOWERS``, ``TRAIN_TOWERS``, ``SALT``, ``SPECIAL``), its
+    reference (``build_reference``, ``Reference``, ``Stage2``, ``latent_shape``,
+    ``text_length``) and its work (``request_work``, ``micro_step_work``)."""
+    config = cell["config"]
+    name = config.get("family")
+    if not isinstance(name, str) or not NAME.fullmatch(name):
+        raise SystemExit(f"configuration {config.get('name')!r} names no model family "
+                         f"(its \"family\" key is {name!r})")
+    path = os.path.join(cell["root"], "perfbench", "families", name + ".py")
+    if not os.path.isfile(path):
+        raise SystemExit(f"no model family {name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location("perfbench_family_" + re.sub(r"\W", "_", name),
                                                   path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)

@@ -30,16 +30,16 @@ def peaks(kind: str) -> Optional[Dict]:
 
 def work(cell: Dict) -> Dict:
     """The work of one request (serving) or micro-step (training), counted
-    on the reference from the cell's shapes."""
-    from perfbench.harness import work as W
+    by the cell's model family on its reference from the cell's shapes."""
+    from perfbench.harness.work import itemsize
 
-    cfg, spec = cell["config"], cell["traffic"]
+    cfg, spec, fam = cell["config"], cell["traffic"], common.family(cell)
     ns = common.namespace(cfg["model"])
     if spec["driver"] == "train":
-        return W.micro_step_work(ns, ns.train.stage2, spec["batch"],
-                                 W.itemsize(ns.train.compute_dtype))
+        return fam.micro_step_work(ns, ns.train.stage2, spec["batch"],
+                                   itemsize(ns.train.compute_dtype))
     serve = cfg["serve"]
-    return W.request_work(ns, spec.get("batch", 1), serve["steps"], W.itemsize(serve["dtype"]))
+    return fam.request_work(ns, spec.get("batch", 1), serve["steps"], itemsize(serve["dtype"]))
 
 
 def per_layer(cell: Dict, res: Dict, device) -> Dict:

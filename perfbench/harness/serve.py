@@ -23,11 +23,10 @@ import numpy as np
 import torch
 
 from perfbench.harness import check, traffic as T
-from perfbench.harness.common import device_info, log, namespace
+from perfbench.harness.common import device_info, family, log, namespace
 from perfbench.harness.spans import span
 from perfbench.harness.weights import draw_weights
 
-TOWERS = ("clap_audio", "clip_text", "hierarchical", "unet", "vae")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
@@ -73,18 +72,22 @@ def image_sample(seed: int, requests: int, batch: int, k: int) -> List[tuple]:
     return [(int(r), lanes[j % len(lanes)]) for j, r in enumerate(picks)]
 
 
-def build_pipeline(model: Dict, serve: Dict, seed: int, device):
+def build_pipeline(cell: Dict, seed: int, device):
+    """The port's pipeline over the serving towers of the cell's model
+    family, on the seed's weights in the served type."""
     from clap2diffusion_tpu_torch.core.config import Config, from_dict
     from clap2diffusion_tpu_torch.diffusion.pipeline import AudioToImagePipeline
 
-    w = draw_weights(namespace(model), seed, TOWERS, DTYPES[serve["dtype"]], device)
+    model, fam = cell["config"]["model"], family(cell)
+    w = draw_weights(fam, namespace(model), seed, fam.SERVE_TOWERS,
+                     DTYPES[cell["config"]["serve"]["dtype"]], device)
     pipe = AudioToImagePipeline(from_dict(Config, model), params=w, device=device)
     del w
     return pipe
 
 
-def max_length(cfg: Dict) -> int:
-    return cfg["model"]["diffusion"]["clip_text"]["max_length"]
+def text_length(cell: Dict) -> int:
+    return family(cell).text_length(namespace(cell["config"]["model"]))
 
 
 def knobs(serve: Dict) -> Dict:
@@ -106,19 +109,55 @@ def release(device) -> None:
         torch.cuda.empty_cache()
 
 
+def pace(lat: List[float], starts: List[float], stages: List[Dict], bin_s: float = 10.0) -> Dict:
+    """The window's latencies as quartiles, by halves and by ``bin_s`` of
+    the window, and their split into the device program (its stage
+    stamps) and the host's remainder, so that a run that reads slow says
+    on which side, in which stage and when it was slow."""
+    def q(v):
+        return [float(x) for x in np.percentile(v, (0, 25, 50, 75, 100))] if len(v) else []
+
+    def by_bin(v):
+        bins: Dict[int, List[float]] = {}
+        for t, x in zip(starts, v):
+            bins.setdefault(int(t // bin_s), []).append(x)
+        return [float(np.median(bins[k])) for k in sorted(bins)]
+
+    out = {"latency_q_s": q(lat), "halves_p50_s": [float(np.median(h)) for h in
+                                                   (lat[:len(lat) // 2], lat[len(lat) // 2:]) if h],
+           "latency_p50_by_bin_s": by_bin(lat)}
+    dev = [sum(v for k, v in st.items() if k.startswith("device.")) for st in stages]
+    if len(dev) == len(lat) and all(dev):
+        out["device_q_s"] = q(dev)
+        out["device_p50_by_bin_s"] = by_bin(dev)
+        out["host_q_s"] = q([a - d for a, d in zip(lat, dev)])
+        for k in ("prepare", "replay", "fetch") + tuple(k for k in stages[0] if k.startswith("device.")):
+            v = [st.get(k, np.nan) for st in stages]
+            out[k + "_p50_s"] = float(np.median(v))
+            out[k + "_p50_by_bin_s"] = by_bin(v)
+    return out
+
+
 def closed(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
     """``traffic["batch"]`` images a request, each lane its own seed, one
     request at a time through ``generate`` (its two halves, dispatch and
-    fetch, each in a span) until the window's seconds have passed."""
+    fetch, each in a span) until the window's seconds have passed.
+    ``traffic["host_threads"]``, where given, caps the process's intra-op
+    CPU threads, so that the host's share of a request waits on no pool of
+    threads that a busy host preempts."""
     cfg, spec = cell["config"], cell["traffic"]
     serve, b = cfg["serve"], spec["batch"]
+    if spec.get("host_threads"):
+        torch.set_num_threads(int(spec["host_threads"]))
     seconds = spec["trace_seconds"] if trace else args.seconds
     t_in = time.perf_counter()
-    inputs = Inputs(spec, args.seed, b, max_length(cfg))
+    inputs = Inputs(spec, args.seed, b, text_length(cell))
     t_pipe = time.perf_counter()
-    pipe = build_pipeline(cfg["model"], serve, args.seed, device)
+    pipe = build_pipeline(cell, args.seed, device)
     t_warm = time.perf_counter()
     kw = knobs(serve)
+
+    stages: List[Dict] = []  # each request's host and device stage seconds, for the log
 
     def request(i: int) -> np.ndarray:
         r = inputs.request(i)
@@ -127,7 +166,11 @@ def closed(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
                                         uncond_ids=r["uncond_ids"], batch=b,
                                         seeds=r["seeds"], **kw)
         with span("fetch"):
-            return h if isinstance(h, torch.Tensor) else h.numpy()
+            if isinstance(h, torch.Tensor):
+                return h
+            out = h.numpy()
+            stages.append(h.stages)
+            return out
 
     for j in range(spec.get("warmup_requests", 2)):
         request(Inputs.WARMUP + j)
@@ -136,14 +179,17 @@ def closed(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
         torch.cuda.reset_peak_memory_stats(device)
     capture_s = capture_seconds(pipe)
     log(phase="setup", before_inputs_s=t_in - t_process, inputs_s=t_pipe - t_in,
-        pipeline_s=t_warm - t_pipe, warmup_s=time.perf_counter() - t_warm, capture_s=capture_s)
+        pipeline_s=t_warm - t_pipe, warmup_s=time.perf_counter() - t_warm, capture_s=capture_s,
+        host_threads=torch.get_num_threads())
     prof = None
     if trace:
         from perfbench.harness.reduce import profile
 
         prof = profile()
         prof.start()
-    images, lat = [], []
+    images, lat, starts = [], [], []
+    del stages[:]
+    cpu0 = time.process_time()
     t0 = time.perf_counter()
     setup_s = t0 - t_process
     with span("window"):
@@ -151,13 +197,15 @@ def closed(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
             ts = time.perf_counter()
             images.append(np.asarray(request(len(images))))
             lat.append(time.perf_counter() - ts)
+            starts.append(ts - t0)
     t1 = time.perf_counter()
     if prof is not None:
         prof.stop()
     dev = device_info(torch, device)
     n = len(images)
     log(phase="window", requests=n, images=n * b, window_s=t1 - t0, setup_s=setup_s,
-        capture_s=capture_s, p50_s=float(np.median(lat)))
+        capture_s=capture_s, p50_s=float(np.median(lat)),
+        process_cpu_s=time.process_time() - cpu0, **pace(lat, starts, stages))
     del pipe, request
     release(device)
     result = {
@@ -174,7 +222,7 @@ def closed(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
                      "text_ids": r["text_ids"][lane:lane + 1],
                      "uncond_ids": r["uncond_ids"][lane:lane + 1],
                      "seed": int(r["seeds"][lane]), "image": images[i][lane]})
-    result["checks"] = check.serving(cfg, args.seed, jobs, device)
+    result["checks"] = check.serving(cell, args.seed, jobs, device)
     return result
 
 
@@ -219,10 +267,10 @@ def open_loop(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
 
     cfg, spec = cell["config"], cell["traffic"]
     serve = cfg["serve"]
-    due = T.due_times(args.seed, spec["rate_per_s"], args.seconds, spec.get("trace_seed", 1))
+    due = T.due_times(spec["rate_per_s"], args.seconds, spec.get("trace_seed", 1))
     n = len(due)
     t_in = time.perf_counter()
-    inputs = Inputs(spec, args.seed, 1, max_length(cfg))
+    inputs = Inputs(spec, args.seed, 1, text_length(cell))
     rate = spec["audio"]["rate"]
 
     def body(i: int) -> Dict:
@@ -235,7 +283,7 @@ def open_loop(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
 
     bodies = [body(i) for i in range(n)]
     t_pipe = time.perf_counter()
-    pipe = build_pipeline(cfg["model"], serve, args.seed, device)
+    pipe = build_pipeline(cell, args.seed, device)
     t_warm = time.perf_counter()
     svc = InferenceService(pipe=pipe, coalesce_ms=spec["coalesce_ms"],
                            coalesce_max_batch=spec["coalesce_max_batch"])
@@ -364,7 +412,7 @@ def open_loop(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
         jobs.append({"waveforms": wavs, "lane": d["lane"], "text_ids": r["text_ids"],
                      "uncond_ids": r["uncond_ids"], "seed": int(r["seeds"][0]),
                      "image": decode_png(base64.b64decode(by_i[d["i"]]["png"]))})
-    result["checks"] = check.serving(cfg, args.seed, jobs, device)
+    result["checks"] = check.serving(cell, args.seed, jobs, device)
     if failed:
         result["checks"].append({"name": "requests_failed", "value": failed, "limit": 0,
                                  "ok": False})

@@ -72,19 +72,17 @@ def lane_rows(perm: np.ndarray, i: int, per: int) -> np.ndarray:
     return perm[(i * per + np.arange(per)) % len(perm)]
 
 
-def due_times(seed: int, rate: float, seconds: float, trace_seed: int = 1) -> np.ndarray:
+def due_times(rate: float, seconds: float, trace_seed: int = 1) -> np.ndarray:
     """An open loop's schedule, seconds from the window's start: exactly
     ``round(rate * seconds)`` arrivals inside the window, from one fixed
-    trace, the same set of gaps in every run (the exponential
-    distribution's quantiles at (k + 1/2) / n, scaled to fill the window)
-    in the order that ``trace_seed`` draws, replayed from a point that the
-    run's seed draws and wrapped round: every seed offers the same bursts
-    and lulls, in another order, so that the tail measures the system and
-    not the draw."""
+    trace (the exponential distribution's quantiles at (k + 1/2) / n, in
+    the order that ``trace_seed`` draws, scaled to fill the window). It is
+    the same in every run, whatever the run's seed, which draws only what
+    each request carries: the tail measures the system, not where a seed
+    put the bursts."""
     n = int(round(rate * seconds))
-    g = rng(seed, 5)
     gaps = -np.log(1.0 - (np.arange(n) + 0.5) / n)
-    gaps = np.roll(np.random.default_rng(trace_seed).permutation(gaps), int(g.integers(0, n)))
+    gaps = np.random.default_rng(trace_seed).permutation(gaps)
     gaps = gaps * (seconds / gaps.sum())
     return np.cumsum(gaps) - gaps[0] * 0.5
 

@@ -21,26 +21,23 @@ import numpy as np
 import torch
 
 from perfbench.harness import traffic as T
-from perfbench.harness.common import device_info, log, namespace
+from perfbench.harness.common import device_info, family, log, namespace
 from perfbench.harness.spans import span, wrap
 from perfbench.harness.weights import draw_weights
-
-TOWERS = ("clap_audio", "clip_text", "hierarchical", "unet")
 
 
 class Feed:
     """A pool of distinct micro-batches drawn at set-up; micro-step ``i``
     takes pool entry ``i % pool``."""
 
-    def __init__(self, spec: Dict, cfg_ns, seed: int):
+    def __init__(self, spec: Dict, latent_shape, seed: int):
         b, pool = spec["batch"], spec["pool"]
         audio = dict(spec["audio"], pool=b * pool, pcm16=False)
         prompts = dict(spec["prompts"], pool=b * pool)
-        lat = cfg_ns.diffusion.image_size // 8
         self.b, self.pool = b, pool
         self.wavs = T.waveforms(audio, seed)
         self.captions = T.prompts(prompts, seed)
-        self.latents = T.latents(seed, b * pool, (lat, lat, cfg_ns.diffusion.vae.latent_channels))
+        self.latents = T.latents(seed, b * pool, tuple(latent_shape))
 
     def batch(self, i: int) -> Dict:
         r = slice((i % self.pool) * self.b, (i % self.pool + 1) * self.b)
@@ -57,11 +54,11 @@ def stage2(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
     from clap2diffusion_tpu_torch.train.stages import BATCH_KEYS, train_step
     from clap2diffusion_tpu_torch.train.trainer import EmbeddingFrontend, stage_state
 
-    cfg_file, spec = cell["config"], cell["traffic"]
+    cfg_file, spec, fam = cell["config"], cell["traffic"], family(cell)
     ns = namespace(cfg_file["model"])
     cfg = from_dict(Config, cfg_file["model"])
-    feed = Feed(spec, ns, args.seed)
-    w = draw_weights(ns, args.seed, TOWERS, torch.float32, device)
+    feed = Feed(spec, fam.latent_shape(ns), args.seed)
+    w = draw_weights(fam, ns, args.seed, fam.TRAIN_TOWERS, torch.float32, device)
     st, state, _ = stage_state(cfg, 2, w, make_train_mesh(1), device, args.seed)
     frontend = EmbeddingFrontend(cfg, w, device=device)
     del w
@@ -133,7 +130,7 @@ def stage2(cell: Dict, args, device, t_process: float, trace: bool) -> Dict:
         "attempted": n * feed.b, "failed": 0, "device": dev,
         "e2e": {"train_samples_per_s": n * feed.b / (t1 - t0), "setup_s": setup_s},
         "ctx": {"window_s": t1 - t0, "micro_steps": n, "batch": feed.b, "prof": prof},
-        "checks": check_training(cfg_file, args.seed, feed, k, program, device),
+        "checks": check_training(cell, args.seed, feed, k, program, device),
     }
 
 
@@ -157,21 +154,21 @@ def leaf_gap(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
     return {"value": gaps[worst], "leaf": worst, "median_norm": med}
 
 
-def reference_run(cfg_file: Dict, seed: int, feed: Feed, k: int, device, precision=None):
-    """The reference's ``k`` micro-steps from the seed's weights: losses,
-    the first step's gradients, the trainable leaves before and after, and
-    the EMA."""
+def reference_run(cell: Dict, seed: int, feed: Feed, k: int, device, precision=None):
+    """The reference's ``k`` micro-steps from the seed's weights, by the
+    cell's model family: losses, the first step's gradients, the trainable
+    leaves before and after, and the EMA."""
     from perfbench.harness.check import fp32
-    from perfbench.reference.pipeline import Reference, Stage2
     from perfbench.reference.tokenizer import CLIPTokenizer
 
-    ns = namespace(cfg_file["model"])
-    tok = CLIPTokenizer(max_length=ns.diffusion.clip_text.max_length)
+    fam = family(cell)
+    ns = namespace(cell["config"]["model"])
+    tok = CLIPTokenizer(max_length=fam.text_length(ns))
     with fp32(precision):
-        w = draw_weights(ns, seed, TOWERS, torch.float32, device)
-        ref = Reference(ns, w, device, TOWERS)
+        w = draw_weights(fam, ns, seed, fam.TRAIN_TOWERS, torch.float32, device)
+        ref = fam.Reference(ns, w, device, fam.TRAIN_TOWERS)
         del w
-        s2 = Stage2(ref, ns.train.stage2)
+        s2 = fam.Stage2(ref, ns.train.stage2)
         p0 = {n: t.detach().clone() for n, t in s2.train.items()}
         gen = torch.Generator(device=device).manual_seed(generator_seed(seed))
         losses, grad1 = [], None
@@ -215,12 +212,12 @@ def readings(program: Dict, ref: Dict) -> Dict:
             "losses_program": program["losses"], "losses_reference": ref["losses"]}
 
 
-def check_training(cfg_file: Dict, seed: int, feed: Feed, k: int, program: Dict,
+def check_training(cell: Dict, seed: int, feed: Feed, k: int, program: Dict,
                    device) -> List[Dict]:
     t0 = time.perf_counter()
-    ref = reference_run(cfg_file, seed, feed, k, device)
+    ref = reference_run(cell, seed, feed, k, device)
     r = readings(program, ref)
     log(phase="check", reference_s=time.perf_counter() - t0, **r)
-    lim = cfg_file["limits"]
+    lim = cell["config"]["limits"]
     return [{"name": n, "value": r[n], "limit": lim[n], "ok": bool(r[n] <= lim[n])}
             for n in ("loss_rel_gap", "grad_norm_gap", "change_norm_gap", "ema_change_norm_gap")]

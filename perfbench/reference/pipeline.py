@@ -16,7 +16,7 @@ formulas of optax's ``MultiSteps(chain(clip_by_global_norm, adamw))``.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -54,15 +54,14 @@ def dequantize(wav: np.ndarray, device) -> torch.Tensor:
 
 class Reference:
     """The reference towers on ``device`` in float32, from ``weights``
-    (tower -> state dict, any type: the values are taken as they are)."""
+    (tower -> state dict, any type: the values are taken as they are), as
+    ``build`` (configuration -> tower -> module) makes them."""
 
     def __init__(self, cfg, weights: Dict[str, Dict[str, torch.Tensor]], device,
-                 towers: Sequence[str]):
-        from perfbench.harness.weights import build_reference
-
+                 towers: Sequence[str], build: Callable[..., Dict[str, torch.nn.Module]]):
         self.cfg, self.device = cfg, torch.device(device)
         with torch.device("meta"):
-            mods = build_reference(cfg)
+            mods = build(cfg)
         for name in towers:
             m = mods[name]
             m.to_empty(device=self.device)

@@ -4,13 +4,13 @@
         --seeds 11,12 [--seconds 51]
 
 Runs the cell's own traffic (its fixed trace of arrivals, rate x seconds
-of them, rotated by each seed) at each rate and seed, without the output
-check, and prints one JSON line per run: the tail, the requests still
-open when the window closed, how long the drain took, and the mean
-latency of the first and the last third of the arrivals. The knee is the
-highest rate at which no run closes its window with a grown backlog (more
-requests open, and a longer drain, than the lowest rates leave); the
-thirds follow where the rotation puts the trace's bursts, at every rate.
+of them, the same for every seed; a seed draws the requests' contents) at
+each rate and seed, without the output check, and prints one JSON line
+per run: the tail, the requests still open when the window closed, how
+long the drain took, and the mean latency of the first and the last third
+of the arrivals. The knee is the highest rate at which no run closes its
+window with a grown backlog (more requests open, and a longer drain, than
+the lowest rates leave).
 The cell's traffic file fixes its rate at four fifths of the knee.
 """
 
@@ -41,7 +41,7 @@ def main(argv=None) -> int:
 
     from perfbench.harness import check, serve
 
-    check.serving = lambda cfg, seed, jobs, dev: []
+    check.serving = lambda cell, seed, jobs, dev: []
     # one pipeline (the first seed's weights), its graphs captured once, serves every run
     build, pipes = serve.build_pipeline, []
 

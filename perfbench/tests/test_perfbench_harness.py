@@ -94,10 +94,10 @@ def test_result_line_has_the_contract_keys_and_checks_last(tmp_path):
 
 
 def test_open_loop_offers_exactly_n_and_counts_every_request(tmp_path, monkeypatch):
-    due = traffic.due_times(123, 2.5, 4.0)
+    due = traffic.due_times(2.5, 4.0)
     assert len(due) == 10 and np.all(np.diff(due) >= 0) and 0 <= due[0] and due[-1] < 4.0
-    assert np.array_equal(due, traffic.due_times(123, 2.5, 4.0))
-    assert len(traffic.due_times(2**31 + 12345, 2.5, 4.0)) == 10
+    assert np.array_equal(due, traffic.due_times(2.5, 4.0))
+    assert not np.array_equal(due, traffic.due_times(2.5, 4.0, trace_seed=2))
     root = tiny.make_root(str(tmp_path))
     with open(os.path.join(root, "perfbench/traffic/open-coalesced.json")) as f:
         mix = json.load(f)
@@ -177,13 +177,15 @@ def test_roofline_and_mfu_on_hand_counted_shapes():
 
 
 def test_work_counts_the_unet_and_its_long_attention():
+    cell = common.cell(common.load_benchmark(), "serve-b1")
+    fam = common.family(cell)
     ns = common.namespace(tiny.tiny_model())
-    w = work.request_work(ns, batch=2, steps=3, itemsize=2)
+    w = fam.request_work(ns, batch=2, steps=3, itemsize=2)
     assert w["flops"] > 0 and w["gn_calls"] > 0 and w["gn_bytes"] > 0
     # the tiny UNet's longest attention is 64 tokens: none reaches 256 queries
     assert w["attn_calls"] == 0
-    full = common.namespace(common.cell(common.load_benchmark(), "serve-b1")["config"]["model"])
-    w1 = work.request_work(full, batch=1, steps=1, itemsize=2)
+    full = common.namespace(cell["config"]["model"])
+    w1 = fam.request_work(full, batch=1, steps=1, itemsize=2)
     # one UNet forward at CFG batch 2: 5 self-attentions each at 4096, 1024 and 256 tokens
     # (the 64-token middle block is not counted), and the VAE's one at 4096 tokens
     assert w1["attn_calls"] == 16

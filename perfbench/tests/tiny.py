@@ -1,6 +1,6 @@
-"""A tiny copy of the benchmark for CPU tests: the same cells, files and
-metrics under a temporary root, with a tiny model, 3 sampling steps, half
-a second of audio and small pools."""
+"""A tiny copy of the benchmark for CPU tests: the same cells, files,
+metrics and model families under a temporary root, with a tiny model, 3
+sampling steps, half a second of audio and small pools."""
 
 from __future__ import annotations
 
@@ -49,8 +49,9 @@ def make_root(tmp: str, dtype: str = "float32") -> str:
     bench = common.load_benchmark()
     for sub in ("configs", "traffic"):
         os.makedirs(os.path.join(tmp, "perfbench", sub), exist_ok=True)
-    shutil.copytree(os.path.join(ROOT, "perfbench", "metrics"),
-                    os.path.join(tmp, "perfbench", "metrics"), dirs_exist_ok=True)
+    for sub in ("metrics", "families"):
+        shutil.copytree(os.path.join(ROOT, "perfbench", sub), os.path.join(tmp, "perfbench", sub),
+                        dirs_exist_ok=True)
     model = tiny_model()
     for c in bench["configs"]:
         with open(os.path.join(ROOT, c["file"])) as f:
